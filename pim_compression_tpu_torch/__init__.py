@@ -1,0 +1,12 @@
+"""pim_compression_tpu_torch — the block-parallel Snappy codec on PyTorch and CUDA.
+
+A port of ``pim_compression_tpu`` (JAX/Pallas on a TPU) to PyTorch with
+hand-written kernels for NVIDIA Hopper. It reuses the reference's JAX-free
+modules (``format``, ``native``, ``utils.config``, ``utils.errors``) and
+never imports JAX. Decompression runs on the GPU today; see ``runtime``.
+"""
+
+from pim_compression_tpu_torch import runtime  # noqa: F401
+from pim_compression_tpu_torch.utils.config import TorchCodecConfig  # noqa: F401
+
+__version__ = "0.1.0"

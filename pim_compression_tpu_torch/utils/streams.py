@@ -1,0 +1,162 @@
+"""Deterministic inputs for checking decoders: payloads, hand-built blocks, mutants.
+
+Everything here is made from a seed, so the tests and ``chip_smoke.py``
+feed the same bytes to every implementation they compare.
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+
+from pim_compression_tpu.format import constants as C
+from pim_compression_tpu.format.varint import encode_varint32
+
+
+def text_payload(n: int, seed: int = 0) -> bytes:
+    """``n`` bytes of text-like data: Zipf-distributed words from a seeded
+    vocabulary, with near repeats (lag <= 4 KB), far repeats, byte runs and
+    a few stretches of random bytes."""
+    rng = np.random.default_rng(seed)
+    vocab = 4096
+    wlen = rng.integers(2, 12, vocab)
+    woff = np.concatenate([[0], np.cumsum(wlen)])
+    letters = rng.integers(97, 123, int(woff[-1]), dtype=np.uint8)
+    out = np.empty(n, dtype=np.uint8)
+    pos = 0
+    while pos < n:
+        m = min(int(rng.integers(256, 8192)), n - pos)
+        r = rng.random()
+        if r < 0.12 and pos >= 64:  # near repeat, possibly overlapping
+            lag = int(rng.integers(1, min(pos, 4096) + 1))
+            out[pos : pos + m] = np.resize(out[pos - lag : pos], m)
+        elif r < 0.22 and pos >= m:  # far repeat
+            src = int(rng.integers(0, pos - m + 1))
+            out[pos : pos + m] = out[src : src + m]
+        elif r < 0.27:  # byte runs
+            run_len = rng.integers(1, 200, m // 8 + 1)
+            out[pos : pos + m] = np.repeat(rng.integers(0, 256, run_len.size, dtype=np.uint8), run_len)[:m]
+        elif r < 0.29:  # incompressible stretch
+            out[pos : pos + m] = rng.integers(0, 256, m, dtype=np.uint8)
+        else:  # words
+            ids = (rng.zipf(1.3, m // 3 + 1) - 1) % vocab
+            lens = wlen[ids] + 1  # word + separator
+            ends = np.cumsum(lens)
+            within = np.arange(int(ends[-1])) - np.repeat(ends - lens, lens)
+            idx = np.repeat(woff[ids], lens) + within
+            words = letters[np.minimum(idx, woff[-1] - 1)]  # a separator slot may index past the end
+            words[ends - 1] = 32
+            out[pos : pos + m] = np.resize(words, m)
+        pos += m
+    return out.tobytes()
+
+
+def frame_block(payload: bytes, out_len: int, block_size: int) -> bytes:
+    """A one-block framed stream: header varints, u32 size, payload."""
+    return (
+        encode_varint32(out_len)
+        + encode_varint32(block_size)
+        + len(payload).to_bytes(C.BLOCK_FRAME_BYTES, "little")
+        + payload
+    )
+
+
+def _literal(data: bytes, ext_bytes: int = 0) -> bytes:
+    """A literal element; ``ext_bytes`` 1-4 forces that many length bytes."""
+    n = len(data) - 1
+    if not ext_bytes:
+        return bytes([n << 2]) + data if n < 60 else _literal(data, (n.bit_length() + 7) // 8)
+    return bytes([(59 + ext_bytes) << 2]) + n.to_bytes(ext_bytes, "little") + data
+
+
+def _copy(offset: int, length: int, width: int) -> bytes:
+    """A copy element with a 1-, 2- or 4-byte offset."""
+    if width == 1:
+        return bytes([1 | ((length - 4) << 2) | ((offset >> 8) << 5), offset & 0xFF])
+    kind = 2 if width == 2 else 3
+    return bytes([kind | ((length - 1) << 2)]) + offset.to_bytes(width, "little")
+
+
+def hand_blocks(block_size: int) -> list[tuple[bytes, int]]:
+    """Valid hand-built blocks (payload, out_len) for a block size >= 256:
+    COPY_4, literal headers with 1-4 length bytes, overlapping run copies at
+    offsets 1, 2 and 3, and a copy at the largest offset the block allows."""
+    blocks = [
+        (_literal(b"ABCDE") + _copy(5, 3, 4), 8),  # COPY_4
+        (_literal(b"Q") + _copy(1, 64, 4) + _copy(65, 64, 2), 129),
+    ]
+    for ext in (1, 2, 3, 4):
+        data = bytes(range(ext * 40, ext * 40 + 70))
+        blocks.append((_literal(data, ext) + _copy(70, 11, 1) + _literal(data[:9], ext), 90))
+    for off in (1, 2, 3):
+        seed = b"xyz"[:off]
+        blocks.append((_literal(seed) + _copy(off, 64, 2) + _copy(off, 11, 1) + _copy(off, 40, 4), off + 115))
+    head = bytes((i * 7 + 3) & 0xFF for i in range(block_size - 1))
+    for width in (2, 4):  # the last byte copies the first: offset block_size - 1
+        blocks.append((_literal(head) + _copy(block_size - 1, 1, width), block_size))
+    return blocks
+
+
+def _elements(payload: bytes) -> list[tuple[int, int, int]]:
+    """(position, kind, output position) of each element of a valid payload."""
+    out, p, o = [], 0, 0
+    while p < len(payload):
+        tag = payload[p]
+        kind = tag & 3
+        out.append((p, kind, o))
+        if kind == 0:
+            lf = tag >> 2
+            n = lf - 59 if lf >= 60 else 0
+            length = (int.from_bytes(payload[p + 1 : p + 1 + n], "little") if n else lf) + 1
+            p += 1 + n + length
+        else:
+            length = ((tag >> 2) & 7) + 4 if kind == 1 else (tag >> 2) + 1
+            p += 1 + (1, 2, 4)[kind - 1]
+        o += length
+    return out
+
+
+def block_mutants(
+    blocks: list[tuple[bytes, int]], rng: random.Random, n: int, block_size: int
+) -> list[tuple[bytes, int]]:
+    """``n`` malformed variants of valid blocks: truncations, flipped tag
+    bits, offset 0, offsets past the output, over-long literals and wrong
+    out_len (kept in [1, block_size]). A mutant may still happen to be valid."""
+    mutants = []
+    while len(mutants) < n:
+        payload, out_len = blocks[rng.randrange(len(blocks))]
+        b = bytearray(payload)
+        elems = _elements(payload)
+        copies = [e for e in elems if e[1] != 0]
+        literals = [e for e in elems if e[1] == 0]
+        what = rng.randrange(6)
+        if what == 0:
+            b = b[: rng.randrange(len(b))]
+        elif what == 1:
+            p = rng.choice(elems)[0]
+            b[p] ^= 1 << rng.randrange(8)
+        elif what in (2, 3) and copies:
+            p, kind, o = rng.choice(copies)
+            if what == 2:
+                off = 0
+            else:
+                off = o + 1 + rng.randrange(64)
+            if kind == 1:
+                off = min(off, 2047)
+                b[p] = (b[p] & 0x1F) | ((off >> 8) << 5)
+                b[p + 1] = off & 0xFF
+            else:
+                width = 2 if kind == 2 else 4
+                b[p + 1 : p + 1 + width] = off.to_bytes(width, "little")
+        elif what == 4 and literals:
+            p = rng.choice(literals)[0]
+            lf = b[p] >> 2
+            if lf < 60:
+                b[p] = min(59, lf + 1 + rng.randrange(8)) << 2
+            else:  # grow the first length byte
+                b[p + 1] = min(255, b[p + 1] + 1 + rng.randrange(8))
+        else:
+            out_len = min(block_size, max(1, out_len + rng.choice((-3, -1, 1, 2, 64))))
+        mutants.append((bytes(b), out_len))
+    return mutants

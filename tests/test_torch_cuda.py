@@ -1,0 +1,107 @@
+"""The port's CUDA decode kernel, on a GPU.
+
+Every test here needs a CUDA device and nvcc, carries the ``cuda`` marker
+and skips without a device. The file imports no JAX, so it also runs where
+only PyTorch is installed:
+
+    python3 -m pytest tests/test_torch_cuda.py -q
+
+The kernel is held against the plain PyTorch decode on the same CUDA
+tensors (equal verdicts on every block, equal bytes on valid blocks) and
+against the plaintext.
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from pim_compression_tpu import native
+from pim_compression_tpu.format import oracle
+from pim_compression_tpu_torch import TorchCodecConfig, runtime
+from pim_compression_tpu_torch.ops import hopper_decode
+from pim_compression_tpu_torch.runtime import pipeline
+from pim_compression_tpu_torch.utils import streams
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda:0")
+
+
+def _compress(data: bytes, block_size: int) -> bytes:
+    return native.compress(data, block_size) if native.available() else oracle.compress(data, block_size)
+
+
+def _blocks(stream: bytes):
+    info = pipeline.scan_frames(stream)
+    return [
+        (stream[o : o + s], int(n))
+        for o, s, n in zip(info["payload_off"], info["payload_size"], info["out_size"])
+    ]
+
+
+def _on_device(blocks, block_size, device):
+    cap = pipeline.padded_capacity(block_size)
+    comp = np.zeros((len(blocks), cap), np.uint8)
+    clen = np.zeros(len(blocks), np.int32)
+    olen = np.zeros(len(blocks), np.int32)
+    for i, (payload, out_len) in enumerate(blocks):
+        comp[i, : len(payload)] = np.frombuffer(payload, np.uint8)
+        clen[i], olen[i] = len(payload), out_len
+    return tuple(torch.from_numpy(a).to(device) for a in (comp, clen, olen))
+
+
+@pytest.mark.parametrize("block_size", [256, 4096, 24576])
+def test_cuda_kernel_matches_plain_version(cuda_device, block_size):
+    stream = _compress(streams.text_payload(6 * block_size + 99, block_size), block_size)
+    base = streams.hand_blocks(block_size) + _blocks(stream)
+    blocks = base + streams.block_mutants(base, random.Random(block_size), 48, block_size)
+    args = _on_device(blocks, block_size, cuda_device)
+    launches = hopper_decode.LAUNCHES
+    out_k, err_k = hopper_decode.decode_blocks(*args, block_size=block_size)
+    torch.cuda.synchronize()
+    assert hopper_decode.LAUNCHES == launches + 1
+    out_p, err_p = hopper_decode.decode_blocks_torch(*args, block_size)
+    assert torch.equal(err_k != 0, err_p != 0)
+    valid = err_k == 0
+    assert valid[: len(base)].all()
+    assert torch.equal(out_k[valid], out_p[valid])
+
+
+def test_cuda_kernel_decodes_32k_stream(cuda_device):
+    data = streams.text_payload(40 * 32768 + 5000, 3)
+    blocks = _blocks(_compress(data, 32768))
+    out, err = hopper_decode.decode_blocks(*_on_device(blocks, 32768, cuda_device), block_size=32768)
+    assert not err.any()
+    flat = out.cpu().numpy().reshape(-1)[: len(data)]
+    assert flat.tobytes() == data
+
+
+def test_cuda_kernel_rejects_bad_tensors(cuda_device):
+    comp = torch.zeros((4, 768), dtype=torch.uint8, device=cuda_device)
+    lens = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # not contiguous
+        hopper_decode.decode_blocks(comp[:, ::2], lens, lens, block_size=256)
+    with pytest.raises(ValueError):  # mixed devices
+        hopper_decode.decode_blocks(comp, lens.cpu(), lens, block_size=256)
+    big = torch.zeros((1, 200000), dtype=torch.uint8, device=cuda_device)
+    one = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # payload + block exceed shared memory
+        hopper_decode.decode_blocks(big, one, one, block_size=32768)
+
+
+def test_cuda_engine_round_trip(cuda_device):
+    data = streams.text_payload(5 * 32768 + 1234, 77)
+    stream = _compress(data, 32768)
+    launches = hopper_decode.LAUNCHES
+    out = runtime.decompress(stream, TorchCodecConfig(engine="cuda", batch_blocks=2))
+    assert bytes(out) == data
+    assert hopper_decode.LAUNCHES == launches + 3  # batches of 2, 2 and 2 blocks
