@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's decompress main path on one GPU.
+"""Smoke run of the PyTorch/CUDA port's decompress and compress main paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      count must show that every batch went through it. Prints end-to-end,
      kernel-only, plain-PyTorch and single-threaded host GB/s;
   5. error path: a corrupt block raises under validate, and an out-of-range
-     declared block size is rejected.
+     declared block size is rejected;
+  6. encode kernels vs plain: the Hopper match and emit kernels and their
+     plain PyTorch versions on the same CUDA tensors (128 blocks and a full
+     1024-block batch of the payload at 32 KB, 2 MB of it at 4 KB and 24 KB,
+     hand-built edge blocks): every match length and lag, every size and
+     every output byte equal (exact);
+  7. compress main path: the phase-4 payload with 8 random blocks spliced in
+     compressed through runtime.compress on the "cuda" engine; the stream
+     must equal the "torch" engine's on the GPU, decode back through the
+     "cuda" engine and the native host codec, divert the 8 random blocks,
+     pass verify=True, and both kernels' launch counts must equal the batch
+     count. Prints end-to-end, kernel-only, plain-PyTorch and single-threaded
+     host GB/s and the stream ratio beside the native codec's;
+  8. encode error path: 64 KB blocks, a block size that is not a multiple of
+     128 and prev_k=2 are refused with BAD_ARGUMENT.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -33,6 +47,7 @@ import time
 BS = 32768
 MAIN_BLOCKS = 1100
 SEED = 20261016
+RANDOM_BLOCKS = (3, 100, 333, 512, 777, 1023, 1024, 1090)  # spliced into the compress payload
 
 
 def log(msg: str) -> None:
@@ -113,6 +128,52 @@ def compare(name, args, block_size, expected=None, reps=5):
     return {"blocks": nb, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
+def compare_encode(name, blocks_np, lens_np, device, reps=5):
+    """Match and emit kernels vs their plain versions on the same CUDA
+    tensors; returns a stats dict with both kernels' times."""
+    import torch
+
+    from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
+    from pim_compression_tpu_torch.runtime import pipeline
+
+    nb, bs = blocks_np.shape
+    cap = pipeline.padded_capacity(bs)
+    blocks = torch.from_numpy(blocks_np).to(device)
+    lens = torch.from_numpy(lens_np).to(device)
+    mlen, mlag = hopper_match.match_blocks(blocks, lens)
+    torch.cuda.synchronize()
+    plain = []
+    match_plain_ms = cuda_ms(lambda: plain.append(hopper_match.match_blocks_torch(blocks, lens)), 1)
+    err = max(
+        int((mlen.to(torch.int32) - plain[0][0].to(torch.int32)).abs().max()),
+        int((mlag.to(torch.int32) - plain[0][1].to(torch.int32)).abs().max()),
+    )
+    if err:
+        raise AssertionError(f"{name}: match lengths or lags differ (max abs err {err})")
+    comp, sizes = hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap)
+    torch.cuda.synchronize()
+    plain = []
+    emit_plain_ms = cuda_ms(lambda: plain.append(hopper_encode.emit_blocks_torch(blocks, lens, mlen, mlag, cap)), 1)
+    if not torch.equal(sizes, plain[0][1]):
+        raise AssertionError(f"{name}: sizes differ on {int((sizes != plain[0][1]).sum())} blocks")
+    emit_err = int((comp.to(torch.int16) - plain[0][0].to(torch.int16)).abs().max())
+    if emit_err:
+        raise AssertionError(f"{name}: compressed bytes differ (max abs err {emit_err})")
+    match_ms = cuda_ms(lambda: hopper_match.match_blocks(blocks, lens), reps)
+    emit_ms = cuda_ms(lambda: hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap), reps)
+    ratio = float(sizes.sum()) / max(1, int(lens.sum()))
+    log(
+        f"  {name}: {nb} blocks at bs {bs}, ratio {ratio:.4f}, lengths, lags, sizes and bytes equal; "
+        f"match kernel {match_ms:.4f} ms, plain {match_plain_ms:.1f} ms; "
+        f"emit kernel {emit_ms:.4f} ms, plain {emit_plain_ms:.1f} ms"
+    )
+    return {
+        "blocks": nb, "bytes": int(lens.sum()), "match_err": err, "emit_err": emit_err,
+        "match_ms": match_ms, "match_plain_ms": match_plain_ms,
+        "emit_ms": emit_ms, "emit_plain_ms": emit_plain_ms,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -122,9 +183,11 @@ def main() -> int:
 
     from pim_compression_tpu import native
     from pim_compression_tpu.format import oracle
-    from pim_compression_tpu.utils.errors import SnappyError
+    import numpy as np
+
+    from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
     from pim_compression_tpu_torch import TorchCodecConfig, runtime
-    from pim_compression_tpu_torch.ops import _build, hopper_decode
+    from pim_compression_tpu_torch.ops import _build, hopper_decode, hopper_encode, hopper_match
     from pim_compression_tpu_torch.runtime import pipeline
     from pim_compression_tpu_torch.utils import streams
 
@@ -247,16 +310,119 @@ def main() -> int:
     else:
         raise AssertionError("the cuda engine accepted 64 KB blocks")
 
-    print(json.dumps({"kernels": [{
-        "name": "decode_blocks",
-        "route": "cuda",
-        "source": "pim_compression_tpu_torch/csrc/decode.cu",
-        "replaces": "pim_compression_tpu/ops/pallas_decode.py:87, pim_compression_tpu/ops/pallas_decode.py:263",
-        "launches": launches,
-        "max_abs_err": max(st["max_abs_err"] for st in stats),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 6. Encode kernels against their plain versions.
+    log("phase 6: match and emit kernels vs plain PyTorch")
+    full = np.frombuffer(payload[: (len(payload) // BS) * BS], np.uint8).reshape(-1, BS).copy()
+    full_lens = np.full(len(full), BS, np.int32)
+    enc_stats = [compare_encode("hand-built", *streams.hand_plain_blocks(BS, SEED), device)]
+    enc_stats.append(compare_encode("batch-128", full[:128], full_lens[:128], device))
+    for bs in (4096, 24576):
+        blocks, lens = pipeline.blockize_plain(sub, bs)
+        enc_stats.append(compare_encode(f"bs-{bs}", blocks, lens, device))
+    n = TorchCodecConfig().batch_blocks
+    enc_stats.append(compare_encode(f"main-batch-{n}", full[:n], full_lens[:n], device, reps=10))
+    enc_batch = enc_stats[-1]
+
+    # 7. Compress main path at real size.
+    rng = np.random.default_rng(SEED)
+    spliced = bytearray(payload)
+    for i in RANDOM_BLOCKS:
+        spliced[i * BS : (i + 1) * BS] = rng.integers(0, 256, BS, dtype=np.uint8).tobytes()
+    spliced = bytes(spliced)
+    nblocks = -(-len(spliced) // BS)
+    enc_batches = -(-(nblocks - len(RANDOM_BLOCKS)) // cfg.batch_blocks)
+    log(f"phase 7: compress main path, {len(spliced)} bytes, {nblocks} blocks at bs {BS}")
+    timer = runtime.PhaseTimer()
+    hopper_match.LAUNCHES = hopper_encode.LAUNCHES = 0
+    t0 = time.perf_counter()
+    comp_stream = runtime.compress(spliced, cfg, timer)
+    c_first_s = time.perf_counter() - t0
+    enc_launches = (hopper_match.LAUNCHES, hopper_encode.LAUNCHES)
+    if enc_launches != (enc_batches, enc_batches):
+        raise AssertionError(f"compress: launches (match, emit) {enc_launches} for {enc_batches} batches")
+    if timer.notes.get("raw_blocks") != len(RANDOM_BLOCKS):
+        raise AssertionError(f"compress: {timer.notes.get('raw_blocks')} raw blocks, expected {len(RANDOM_BLOCKS)}")
+    log(f"  {enc_launches[0]} match and {enc_launches[1]} emit launches for {enc_batches} batches; "
+        f"{timer.notes['raw_blocks']} blocks diverted raw")
+    log(f"  first run: {len(spliced) / c_first_s / 1e9:.3f} GB/s end to end; phases {timer.json()}")
+    runs = []
+    for _ in range(3):
+        timer = runtime.PhaseTimer()
+        t0 = time.perf_counter()
+        again = runtime.compress(spliced, cfg, timer)
+        runs.append((time.perf_counter() - t0, timer))
+        if bytes(again) != bytes(comp_stream):
+            raise AssertionError("compress: a repeated run gave another stream")
+    c_e2e_s, timer = min(runs, key=lambda r: r[0])
+    c_e2e_gbs = len(spliced) / c_e2e_s / 1e9
+    log(f"  best of 3: {c_e2e_gbs:.3f} GB/s end to end ({c_e2e_s * 1e3:.1f} ms); phases {timer.json()}")
+    t0 = time.perf_counter()
+    plain_stream = runtime.compress(spliced, TorchCodecConfig(engine="torch", device="cuda:0", block_size=BS))
+    plain_s = time.perf_counter() - t0
+    if bytes(plain_stream) != bytes(comp_stream):
+        raise AssertionError("compress: the cuda engine's stream differs from the torch engine's")
+    log(f"  equal to the torch engine's stream on the GPU ({plain_s:.1f} s, {len(spliced) / plain_s / 1e9:.4f} GB/s)")
+    if bytes(runtime.decompress(bytes(comp_stream), cfg)) != spliced:
+        raise AssertionError("compress: the cuda decoder does not give the payload back")
+    if native.decompress(bytes(comp_stream)) != spliced:
+        raise AssertionError("compress: the native decoder does not give the payload back")
+    if bytes(runtime.compress(spliced, TorchCodecConfig(engine="cuda", block_size=BS, verify=True))) != bytes(comp_stream):
+        raise AssertionError("compress: verify=True gave another stream")
+    log("  decodes back through the cuda engine and native; verify=True passes")
+    t0 = time.perf_counter()
+    host_stream = native.compress(spliced, BS, num_threads=1)
+    host_c_gbs = len(spliced) / (time.perf_counter() - t0) / 1e9
+    batch_mb = enc_batch["bytes"] / 1e6
+    log(f"  stream ratio {len(comp_stream) / len(spliced):.4f}; native compress ratio {len(host_stream) / len(spliced):.4f}")
+    log(f"  kernel only per {n}-block batch: match {enc_batch['match_ms']:.3f} ms + emit {enc_batch['emit_ms']:.3f} ms "
+        f"= {batch_mb / (enc_batch['match_ms'] + enc_batch['emit_ms']):.3f} GB/s")
+    log(f"  plain PyTorch per batch: match {enc_batch['match_plain_ms']:.1f} ms, emit {enc_batch['emit_plain_ms']:.1f} ms")
+    log(f"  native host compress, 1 thread: {host_c_gbs:.3f} GB/s; end-to-end / host = {c_e2e_gbs / host_c_gbs:.3f}")
+
+    # 8. Encode error path.
+    log("phase 8: encode error path")
+    for knobs in (dict(block_size=65536), dict(block_size=1000), dict(prev_k=2)):
+        try:
+            runtime.compress(spliced[: 1 << 20], TorchCodecConfig(engine="cuda", **knobs))
+        except SnappyError as e:
+            if e.status != SnappyStatus.BAD_ARGUMENT:
+                raise AssertionError(f"{knobs}: refused with {e.status}, not BAD_ARGUMENT") from e
+            log(f"  {knobs} refused: {e}")
+        else:
+            raise AssertionError(f"the cuda engine compressed with {knobs}")
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "decode_blocks",
+            "route": "cuda",
+            "source": "pim_compression_tpu_torch/csrc/decode.cu",
+            "replaces": "pim_compression_tpu/ops/pallas_decode.py:87, pim_compression_tpu/ops/pallas_decode.py:263",
+            "launches": launches,
+            "max_abs_err": max(st["max_abs_err"] for st in stats),
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+        },
+        {
+            "name": "match_blocks",
+            "route": "cuda",
+            "source": "pim_compression_tpu_torch/csrc/match.cu",
+            "replaces": "pim_compression_tpu/ops/pallas_match.py:131, pim_compression_tpu/ops/pallas_match.py:548",
+            "launches": enc_launches[0],
+            "max_abs_err": max(st["match_err"] for st in enc_stats),
+            "ms": enc_batch["match_ms"],
+            "plain_ms": enc_batch["match_plain_ms"],
+        },
+        {
+            "name": "emit_blocks",
+            "route": "cuda",
+            "source": "pim_compression_tpu_torch/csrc/emit.cu",
+            "replaces": "pim_compression_tpu/ops/pallas_encode.py:559",
+            "launches": enc_launches[1],
+            "max_abs_err": max(st["emit_err"] for st in enc_stats),
+            "ms": enc_batch["emit_ms"],
+            "plain_ms": enc_batch["emit_plain_ms"],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

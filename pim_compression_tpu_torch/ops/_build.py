@@ -1,10 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every source in ``csrc/`` into one shared
-library with a plain C interface, loaded with ctypes. The library lands in
-``build/kernels/`` at the checkout root (listed in ``.gitignore``) under a
-name that hashes the sources and flags, so a changed source rebuilds and an
-unchanged one loads at once. A build failure raises; nothing falls back.
+At first use, ``nvcc`` compiles every source in ``csrc/`` into an object
+file, one process per source, all started together, and links the objects
+into one shared library with a plain C interface, loaded with ctypes. The
+library lands in ``build/kernels/`` at the checkout root (listed in
+``.gitignore``) under a name that hashes the sources and flags, so a changed
+source rebuilds and an unchanged one loads at once. A build failure raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ BUILD_DIR = CSRC_DIR.parent.parent / "build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: ctypes.CDLL | None = None
 # nvcc's output from the build this process ran (ptxas register and
@@ -48,11 +51,24 @@ def _nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpim_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(commands: list[list[str]]) -> str:
+    """Run the commands at once; raise with their output if any fails."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    failed = [(proc.returncode, out) for proc, out in zip(procs, outs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("".join(f"nvcc failed ({rc}):\n{out}" for rc, out in failed))
+    return "".join(outs)
 
 
 def build() -> pathlib.Path:
@@ -62,23 +78,15 @@ def build() -> pathlib.Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    units = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *units],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        build_log = proc.stdout + proc.stderr
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in units]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o] for p, o in zip(units, objs)])
+        lib = os.path.join(tmp, path.name)
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, path)
+    build_log = log
     return path
 
 
@@ -93,6 +101,18 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr,  # comp, comp_len, out_len, out, err
             i32, i32, i32, i32,  # num_blocks, cap, block_size, device
             ptr,  # stream
+        ]
+        lib.pim_match_blocks.restype = i32
+        lib.pim_match_blocks.argtypes = [
+            ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag
+            i32, i32, i32, i32, i32, i32,  # num_blocks, block_size, rung_mask, ext_cap, neighbor, max_lag
+            i32, ptr,  # device, stream
+        ]
+        lib.pim_emit_blocks.restype = i32
+        lib.pim_emit_blocks.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, comp, sizes
+            i32, i32, i32,  # num_blocks, block_size, cap
+            i32, ptr,  # device, stream
         ]
         _lib = lib
     return _lib

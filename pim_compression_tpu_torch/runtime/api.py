@@ -1,24 +1,25 @@
-"""Public codec API of the port: ``decompress`` with engine dispatch.
+"""Public codec API of the port: ``compress`` / ``decompress`` with engine dispatch.
 
 Engines:
 - ``oracle``: the pure-Python arbiter (passes through to the reference).
 - ``native``: the C++ threaded host codec (passes through).
-- ``cuda``: the hand-written Hopper decode kernel on one CUDA device.
-- ``torch``: the plain PyTorch decode, on the CPU or a GPU.
+- ``cuda``: the hand-written Hopper kernels (match, emit, decode) on one
+  CUDA device.
+- ``torch``: their plain PyTorch versions, on the CPU or a GPU.
 
-Ported from ``pim_compression_tpu.runtime.api.decompress``. ``compress`` for
-the device engines is not ported yet: the reference's ``runtime.compress``
-or ``native.compress`` produce the streams.
+Ported from ``pim_compression_tpu.runtime.api``. The device engines emit
+the same streams as the reference's ``pallas`` engine at the same config.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pim_compression_tpu import native
 from pim_compression_tpu.format import oracle
 from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
-from pim_compression_tpu_torch.ops import _build, hopper_decode
+from pim_compression_tpu_torch.ops import _build, hopper_decode, hopper_encode
 from pim_compression_tpu_torch.parallel import resolve_device
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.runtime.profiling import PhaseTimer
@@ -73,7 +74,7 @@ def decompress(
         result = native.uninit_bytearray(total_len) if native.available() else bytearray(total_len)
         flat = torch.frombuffer(result, dtype=torch.uint8)
 
-    if on_cuda:
+    if config.engine == "cuda":
         with timer.phase("compile"):
             _build.load()
         decode = hopper_decode.decode_blocks
@@ -108,3 +109,89 @@ def decompress(
 
     with timer.phase("post"):
         return bytes(result) if total_len < (1 << 20) else result
+
+
+def compress(
+    data: bytes,
+    config: TorchCodecConfig | None = None,
+    timer: PhaseTimer | None = None,
+) -> bytes | bytearray:
+    """Compress to a framed stream.
+
+    The device engines blockize the input, divert incompressible blocks to
+    raw literal frames (``config.raw_triage``), and encode the rest in
+    batches of ``config.batch_blocks`` (plus a tail batch), each h2d ->
+    match + emit -> d2h, synchronously. Only the sorted rung-pick matcher
+    at 256 <= block_size <= 32768 (a multiple of 128) is ported; any other
+    size or knob raises ``SnappyError(BAD_ARGUMENT)``. With
+    ``config.verify``, each batch is decoded again on its device and
+    compared with its input blocks; a mismatch raises ``SnappyError``.
+    """
+    config = config or TorchCodecConfig()
+    timer = timer if timer is not None else PhaseTimer()
+
+    if config.engine == "oracle":
+        with timer.phase("kernel"):
+            return oracle.compress(data, config.block_size)
+    if config.engine == "native":
+        with timer.phase("kernel"):
+            return native.compress(data, config.block_size, num_threads=config.num_threads)
+
+    knobs = hopper_encode.encode_knobs(config)
+    device = resolve_device(config.engine, config.device)
+    on_cuda = device.type == "cuda"
+    block_size = config.block_size
+    cap = pipeline.padded_capacity(block_size)
+
+    def sync() -> None:
+        if on_cuda:
+            torch.cuda.synchronize(device)
+
+    with timer.phase("pre"):
+        if not data:
+            return oracle.compress(b"", block_size)  # header-only stream
+        blocks, lens = pipeline.blockize_plain(data, block_size)
+        nb = len(lens)
+        raw = pipeline.triage_incompressible(blocks, lens) if config.raw_triage else np.zeros(nb, bool)
+        dev_idx = np.flatnonzero(~raw)
+        if nb - dev_idx.size:
+            timer.notes["raw_blocks"] = int(nb - dev_idx.size)
+        comp = np.empty((nb, cap), dtype=np.uint8)
+        sizes = np.empty(nb, dtype=np.int32)
+
+    if config.engine == "cuda":
+        with timer.phase("compile"):
+            _build.load()
+        encode, decode = hopper_encode.encode_blocks, hopper_decode.decode_blocks
+    else:
+        encode, decode = hopper_encode.encode_blocks_torch, hopper_decode.decode_blocks_torch
+
+    batch = max(1, config.batch_blocks)
+    for start in range(0, dev_idx.size, batch):
+        rows = dev_idx[start : start + batch]
+        with timer.phase("h2d"):
+            blocks_d = torch.from_numpy(blocks[rows]).to(device)
+            lens_d = torch.from_numpy(lens[rows]).to(device)
+            sync()
+        with timer.phase("kernel"):
+            comp_d, sizes_d = encode(blocks_d, lens_d, cap=cap, **knobs)
+            if config.verify:
+                out_v, err_v = decode(comp_d, sizes_d, lens_d, block_size=block_size)
+                inside = torch.arange(block_size, device=device)[None, :] < lens_d[:, None]
+                bad = ((out_v != blocks_d) & inside).any(dim=1) | (err_v != 0)
+            sync()
+        with timer.phase("d2h"):
+            if config.verify and bool(bad.any()):
+                failed = rows[np.flatnonzero(bad.cpu().numpy())]
+                raise SnappyError(
+                    SnappyStatus.INVALID_INPUT,
+                    f"on-device verify failed for blocks {failed[:8].tolist()}",
+                )
+            comp[rows] = comp_d.cpu().numpy()
+            sizes[rows] = sizes_d.cpu().numpy()
+
+    with timer.phase("post"):
+        pipeline.raw_literal_frames(blocks, lens, comp, sizes, np.flatnonzero(raw))
+        if config.validate and int(sizes.max(initial=0)) > cap:
+            raise SnappyError(SnappyStatus.BUFFER_TOO_SMALL, "encoder overflow")
+        return pipeline.assemble_compressed(comp, sizes, len(data), block_size)

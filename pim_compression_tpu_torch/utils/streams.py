@@ -1,4 +1,5 @@
-"""Deterministic inputs for checking decoders: payloads, hand-built blocks, mutants.
+"""Deterministic inputs for checking the codec: payloads, plain blocks for
+the encoders, hand-built compressed blocks and mutants for the decoders.
 
 Everything here is made from a seed, so the tests and ``chip_smoke.py``
 feed the same bytes to every implementation they compare.
@@ -50,6 +51,59 @@ def text_payload(n: int, seed: int = 0) -> bytes:
             out[pos : pos + m] = np.resize(words, m)
         pos += m
     return out.tobytes()
+
+
+def plain_blocks(block_size: int, num_blocks: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Blocks for checking encoders: (blocks uint8[n, block_size], lens
+    int32[n]), zero past each length. About half are full, the rest take a
+    random length; the bytes mix prefixes of one shared snippet (repeats at
+    many lags) with random stretches."""
+    rng = np.random.default_rng(seed)
+    snippet = rng.integers(0, 256, 300, dtype=np.uint8)
+    blocks = np.zeros((num_blocks, block_size), dtype=np.uint8)
+    lens = np.zeros(num_blocks, dtype=np.int32)
+    for i in range(num_blocks):
+        parts, n = [], 0
+        while n < block_size:
+            if rng.random() < 0.6:
+                part = snippet[: int(rng.integers(4, 121))]
+            else:
+                part = rng.integers(0, 256, int(rng.integers(3, 61)), dtype=np.uint8)
+            parts.append(part)
+            n += len(part)
+        length = block_size if rng.random() < 0.5 else int(rng.integers(1, block_size + 1))
+        blocks[i, :length] = np.concatenate(parts)[:length]
+        lens[i] = length
+    return blocks, lens
+
+
+def hand_plain_blocks(block_size: int, seed: int = 0, far_lag: int = 8193) -> tuple[np.ndarray, np.ndarray]:
+    """Edge cases for the encoders, as ``plain_blocks`` returns them: all
+    zeros, one byte repeated, a partial block of 5 bytes, a block whose last
+    20 bytes repeat an earlier stretch (the hashes of its last positions
+    read past the block), a random block with one 32-byte repeat at lag
+    ``far_lag`` (when it fits), and 4 random blocks (block_size >= 128)."""
+    rng = np.random.default_rng(seed)
+    rand = lambda: rng.integers(0, 256, block_size, dtype=np.uint8)  # noqa: E731
+    rows = [np.zeros(block_size, np.uint8), np.full(block_size, 0x61, np.uint8)]
+    lens = [block_size, block_size]
+    partial = np.zeros(block_size, np.uint8)
+    partial[:5] = rng.integers(0, 256, 5, dtype=np.uint8)
+    rows.append(partial)
+    lens.append(5)
+    tail = rand()
+    tail[-20:] = tail[50:70]
+    rows.append(tail)
+    lens.append(block_size)
+    if far_lag + 42 <= block_size:
+        far = rand()
+        far[10 + far_lag : 42 + far_lag] = far[10:42]
+        rows.append(far)
+        lens.append(block_size)
+    for _ in range(4):
+        rows.append(rand())
+        lens.append(block_size)
+    return np.stack(rows), np.array(lens, dtype=np.int32)
 
 
 def frame_block(payload: bytes, out_len: int, block_size: int) -> bytes:

@@ -1,4 +1,4 @@
-"""The port's CUDA decode kernel, on a GPU.
+"""The port's CUDA kernels (decode, match, emit), on a GPU.
 
 Every test here needs a CUDA device and nvcc, carries the ``cuda`` marker
 and skips without a device. The file imports no JAX, so it also runs where
@@ -6,9 +6,10 @@ only PyTorch is installed:
 
     python3 -m pytest tests/test_torch_cuda.py -q
 
-The kernel is held against the plain PyTorch decode on the same CUDA
-tensors (equal verdicts on every block, equal bytes on valid blocks) and
-against the plaintext.
+Each kernel is held against its plain PyTorch version on the same CUDA
+tensors: the decode kernel by verdicts on every block and bytes on valid
+blocks, the match and emit kernels exactly (every length, lag, size and
+byte); and the engines against the plaintext.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from pim_compression_tpu import native
 from pim_compression_tpu.format import oracle
 from pim_compression_tpu_torch import TorchCodecConfig, runtime
-from pim_compression_tpu_torch.ops import hopper_decode
+from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
 
@@ -105,3 +106,60 @@ def test_cuda_engine_round_trip(cuda_device):
     out = runtime.decompress(stream, TorchCodecConfig(engine="cuda", batch_blocks=2))
     assert bytes(out) == data
     assert hopper_decode.LAUNCHES == launches + 3  # batches of 2, 2 and 2 blocks
+
+
+MAIN = dict(rungs=(4, 16), ext_cap=48, neighbor=True, max_lag=8192)
+
+
+@pytest.mark.parametrize(
+    "block_size, knobs",
+    [(256, MAIN), (4096, MAIN), (24576, MAIN), (32768, MAIN),
+     (4096, dict(rungs=(4, 8, 16, 32, 64), ext_cap=64, neighbor=False, max_lag=0))],
+    ids=["256", "4096", "24576", "32768", "4096-all-rungs"],
+)
+def test_cuda_encode_kernels_match_plain_versions(cuda_device, block_size, knobs):
+    n = 300 if block_size <= 4096 else 40
+    rb, rl = streams.plain_blocks(block_size, n, block_size)
+    hb, hl = streams.hand_plain_blocks(block_size, block_size)
+    text = np.frombuffer(streams.text_payload(8 * block_size, 5), np.uint8).reshape(8, block_size)
+    blocks = torch.from_numpy(np.concatenate([rb, hb, text])).to(cuda_device)
+    lens = torch.from_numpy(np.concatenate([rl, hl, np.full(8, block_size, np.int32)])).to(cuda_device)
+    launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES
+    mlen, mlag = hopper_match.match_blocks(blocks, lens, **knobs)
+    cap = pipeline.padded_capacity(block_size)
+    comp, sizes = hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap)
+    torch.cuda.synchronize()
+    assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    want_len, want_lag = hopper_match.match_blocks_torch(blocks, lens, **knobs)
+    assert torch.equal(mlen, want_len) and torch.equal(mlag, want_lag)
+    want_comp, want_sizes = hopper_encode.emit_blocks_torch(blocks, lens, mlen, mlag, cap)
+    assert torch.equal(sizes, want_sizes) and torch.equal(comp, want_comp)
+
+
+def test_cuda_encode_wrappers_reject_bad_tensors(cuda_device):
+    blocks = torch.zeros((4, 512), dtype=torch.uint8, device=cuda_device)
+    lens = torch.full((4,), 512, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # not contiguous
+        hopper_match.match_blocks(blocks[:, ::2], lens)
+    with pytest.raises(ValueError):  # mixed devices
+        hopper_match.match_blocks(blocks, lens.cpu())
+    mlen, mlag = hopper_match.match_blocks(blocks, lens)
+    with pytest.raises(ValueError):  # output staging past shared memory
+        hopper_encode.emit_blocks(blocks, lens, mlen, mlag, 250000)
+
+
+def test_cuda_engine_compress_round_trip(cuda_device):
+    rng = np.random.default_rng(8)
+    text = streams.text_payload(6 * 32768, 9)
+    data = text[: 2 * 32768] + rng.integers(0, 256, 32768, dtype=np.uint8).tobytes() + text[2 * 32768 :] + b"tail"
+    cfg = TorchCodecConfig(engine="cuda", block_size=32768, batch_blocks=2, verify=True)
+    launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES
+    timer = runtime.PhaseTimer()
+    stream = runtime.compress(data, cfg, timer)
+    assert timer.notes["raw_blocks"] == 1
+    # 7 blocks on the device in batches of 2, 2, 2 and 1.
+    assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES) == (launches[0] + 4, launches[1] + 4)
+    plain = runtime.compress(data, TorchCodecConfig(engine="torch", device="cuda:0", block_size=32768))
+    assert bytes(stream) == bytes(plain)
+    assert bytes(runtime.decompress(bytes(stream), TorchCodecConfig(engine="cuda"))) == data
+    assert oracle.decompress(bytes(stream)) == data

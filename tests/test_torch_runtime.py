@@ -188,14 +188,16 @@ def test_cuda_engine_never_runs_on_the_cpu():
 
 
 def test_import_leaves_jax_out():
-    # The port and a torch-engine decompress must not load JAX.
+    # The port and a torch-engine compress and decompress must not load JAX.
     code = (
         "import sys\n"
         "import pim_compression_tpu_torch as p\n"
         "from pim_compression_tpu.format import oracle\n"
         "data = b'jax-free ' * 500\n"
-        "s = oracle.compress(data, 256)\n"
-        "assert p.runtime.decompress(s, p.TorchCodecConfig(engine='torch')) == data\n"
+        "cfg = p.TorchCodecConfig(engine='torch', block_size=256)\n"
+        "s = p.runtime.compress(data, cfg)\n"
+        "assert oracle.decompress(bytes(s)) == data\n"
+        "assert p.runtime.decompress(s, cfg) == data\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
