@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's decompress and compress main paths on one GPU.
+"""Smoke run of the PyTorch/CUDA port's decompress and compress main paths on one GPU,
+at 32 KB and at 64 KB blocks.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. build: compiles the kernels in pim_compression_tpu_torch/csrc with nvcc;
   3. kernel vs plain: the Hopper decode kernel and the plain PyTorch decode
      on the same CUDA tensors (hand-built blocks, a 128-block batch at 32 KB,
-     blocks at 4 KB and 24 KB, malformed mutants): equal verdicts on every
+     blocks at 4 KB and 24 KB, malformed mutants; at 64 KB 128 blocks of the
+     payload with a block whose copies reach past 32768, hand-built blocks and
+     mutants in one batch, and blocks at 40 KB): equal verdicts on every
      block, equal bytes on every valid block (exact: the codec is integer-only);
   4. main path: a ~36 MB text-like payload (1100 blocks of 32 KB: a full
      1024-block batch, a tail batch, a partial last block) compressed by the
@@ -30,8 +33,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      pass verify=True, and both kernels' launch counts must equal the batch
      count. Prints end-to-end, kernel-only, plain-PyTorch and single-threaded
      host GB/s and the stream ratio beside the native codec's;
-  8. encode error path: 64 KB blocks, a block size that is not a multiple of
-     128 and prev_k=2 are refused with BAD_ARGUMENT.
+  8. encode error path: the sweep matcher, a sort mode, a block size that is
+     not a multiple of 128 and the ladder without sel_all are refused with
+     BAD_ARGUMENT;
+  9. 64 KB kernels vs plain: the match and emit kernels on 128 blocks of the
+     64 KB payload at the zero-flag config (switched to the sel_all ladder)
+     and at each preset's 64 KB row: every length, lag, size and byte equal;
+ 10. 64 KB main paths: a ~72 MB payload (1100 blocks of 64 KB) with random
+     blocks spliced in compressed through runtime.compress on the "cuda"
+     engine (equal to the "torch" engine's stream on the GPU, verify=True,
+     decodes back through the "cuda" engine and native; launch counts equal
+     the batch counts), and the native codec's 64 KB stream of the payload
+     decompressed through the "cuda" engine. Prints end-to-end, kernel-only,
+     plain-PyTorch and single-threaded host GB/s and the stream ratio.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -45,9 +59,10 @@ import sys
 import time
 
 BS = 32768
+WIDE_BS = 65536
 MAIN_BLOCKS = 1100
 SEED = 20261016
-RANDOM_BLOCKS = (3, 100, 333, 512, 777, 1023, 1024, 1090)  # spliced into the compress payload
+RANDOM_BLOCKS = (3, 100, 333, 512, 777, 1023, 1024, 1090)  # spliced into the compress payloads
 
 
 def log(msg: str) -> None:
@@ -125,41 +140,43 @@ def compare(name, args, block_size, expected=None, reps=5):
         f"  {name}: {nb} blocks at bs {block_size}, {int(valid.sum())} valid, "
         f"verdicts equal, max abs err {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms"
     )
-    return {"blocks": nb, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return {"blocks": nb, "bytes": int(args[2].sum()), "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
-def compare_encode(name, blocks_np, lens_np, device, reps=5):
+def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
     """Match and emit kernels vs their plain versions on the same CUDA
-    tensors; returns a stats dict with both kernels' times."""
+    tensors, at the given matcher knobs (default: the zero-flag config up to
+    32 KB); returns a stats dict with both kernels' times."""
     import torch
 
     from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
     from pim_compression_tpu_torch.runtime import pipeline
 
+    knobs = knobs or {}
     nb, bs = blocks_np.shape
     cap = pipeline.padded_capacity(bs)
     blocks = torch.from_numpy(blocks_np).to(device)
     lens = torch.from_numpy(lens_np).to(device)
-    mlen, mlag = hopper_match.match_blocks(blocks, lens)
+    mlen, mlag = hopper_match.match_blocks(blocks, lens, **knobs)
     torch.cuda.synchronize()
     plain = []
-    match_plain_ms = cuda_ms(lambda: plain.append(hopper_match.match_blocks_torch(blocks, lens)), 1)
+    match_plain_ms = cuda_ms(lambda: plain.append(hopper_match.match_blocks_torch(blocks, lens, **knobs)), 1)
     err = max(
         int((mlen.to(torch.int32) - plain[0][0].to(torch.int32)).abs().max()),
         int((mlag.to(torch.int32) - plain[0][1].to(torch.int32)).abs().max()),
     )
     if err:
         raise AssertionError(f"{name}: match lengths or lags differ (max abs err {err})")
+    plain = []  # free the plain match's output before the plain emit
     comp, sizes = hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap)
     torch.cuda.synchronize()
-    plain = []
     emit_plain_ms = cuda_ms(lambda: plain.append(hopper_encode.emit_blocks_torch(blocks, lens, mlen, mlag, cap)), 1)
     if not torch.equal(sizes, plain[0][1]):
         raise AssertionError(f"{name}: sizes differ on {int((sizes != plain[0][1]).sum())} blocks")
     emit_err = int((comp.to(torch.int16) - plain[0][0].to(torch.int16)).abs().max())
     if emit_err:
         raise AssertionError(f"{name}: compressed bytes differ (max abs err {emit_err})")
-    match_ms = cuda_ms(lambda: hopper_match.match_blocks(blocks, lens), reps)
+    match_ms = cuda_ms(lambda: hopper_match.match_blocks(blocks, lens, **knobs), reps)
     emit_ms = cuda_ms(lambda: hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap), reps)
     ratio = float(sizes.sum()) / max(1, int(lens.sum()))
     log(
@@ -174,6 +191,132 @@ def compare_encode(name, blocks_np, lens_np, device, reps=5):
     }
 
 
+def best_of_3(fn, nbytes: int, expected: bytes, what: str):
+    """Run fn(timer) three times; each result must equal expected. Returns
+    (GB/s, seconds, timer) of the fastest run."""
+    from pim_compression_tpu_torch import runtime
+
+    runs = []
+    for _ in range(3):
+        timer = runtime.PhaseTimer()
+        t0 = time.perf_counter()
+        out = fn(timer)
+        runs.append((time.perf_counter() - t0, timer))
+        if bytes(out) != expected:
+            raise AssertionError(f"{what}: a repeated run gave other bytes")
+    secs, timer = min(runs, key=lambda r: r[0])
+    return nbytes / secs / 1e9, secs, timer
+
+
+def decompress_main(stream: bytes, payload: bytes, bs: int, device, plain: dict) -> dict:
+    """The decompress main path at one block size through the "cuda" engine:
+    launch count, round trip, best of 3, kernel-only time of one full batch
+    (plain time from ``plain``, a compare on a smaller batch)."""
+    import torch
+
+    from pim_compression_tpu import native
+    from pim_compression_tpu_torch import TorchCodecConfig, runtime
+    from pim_compression_tpu_torch.ops import hopper_decode
+    from pim_compression_tpu_torch.runtime import pipeline
+
+    cfg = TorchCodecConfig(engine="cuda", block_size=bs)
+    info = pipeline.scan_frames(stream)
+    nb = len(info["payload_off"])
+    batches = -(-nb // cfg.batch_blocks)
+    log(f"  {nb} blocks at bs {bs}, {len(payload)} bytes")
+    timer = runtime.PhaseTimer()
+    hopper_decode.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = runtime.decompress(stream, cfg, timer)
+    first_s = time.perf_counter() - t0
+    launches = hopper_decode.LAUNCHES
+    if bytes(out) != payload:
+        raise AssertionError(f"decompress bs {bs}: decompressed bytes differ from the payload")
+    if launches != batches:
+        raise AssertionError(f"decompress bs {bs}: {launches} kernel launches for {batches} batches")
+    log(f"  round trip exact; {launches} kernel launches for {batches} batches")
+    log(f"  first run: {len(payload) / first_s / 1e9:.3f} GB/s end to end; phases {timer.json()}")
+    e2e_gbs, e2e_s, timer = best_of_3(lambda t: runtime.decompress(stream, cfg, t), len(payload), payload, "decompress")
+    log(f"  best of 3: {e2e_gbs:.3f} GB/s end to end ({e2e_s * 1e3:.1f} ms); phases {timer.json()}")
+
+    comp, clen, olen = pipeline.blockize_compressed(stream, info)
+    n = cfg.batch_blocks
+    args = tuple(torch.from_numpy(a[:n]).to(device) for a in (comp, clen, olen))
+    kernel_ms = cuda_ms(lambda: hopper_decode.decode_blocks(*args, block_size=bs), 20)
+    batch_bytes = int(olen[:n].sum())
+    plain_gbs = plain["bytes"] / plain["plain_ms"] / 1e6
+    log(f"  kernel only: {kernel_ms:.3f} ms per {n}-block batch, {batch_bytes / kernel_ms / 1e6:.3f} GB/s")
+    log(f"  plain PyTorch: {plain['plain_ms']:.1f} ms per {plain['blocks']}-block batch, {plain_gbs:.4f} GB/s")
+    t0 = time.perf_counter()
+    host = native.decompress(stream, num_threads=1)
+    host_gbs = len(payload) / (time.perf_counter() - t0) / 1e9
+    if host != payload:
+        raise AssertionError("native host decode differs from the payload")
+    log(f"  native host, 1 thread: {host_gbs:.3f} GB/s; end-to-end / host = {e2e_gbs / host_gbs:.3f}")
+    return {"launches": launches, "kernel_ms": kernel_ms, "e2e_gbs": e2e_gbs}
+
+
+def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None) -> dict:
+    """The compress main path at one block size through the "cuda" engine,
+    with RANDOM_BLOCKS replaced by seeded random bytes: launch counts, raw
+    blocks, best of 3, the "torch" engine's stream on the GPU, round trips,
+    verify=True; kernel times from ``enc_batch`` (a compare on one batch)."""
+    import numpy as np
+
+    from pim_compression_tpu import native
+    from pim_compression_tpu_torch import TorchCodecConfig, runtime
+    from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
+
+    knobs = knobs or {}
+    rng = np.random.default_rng(SEED)
+    spliced = bytearray(payload)
+    for i in RANDOM_BLOCKS:
+        spliced[i * bs : (i + 1) * bs] = rng.integers(0, 256, bs, dtype=np.uint8).tobytes()
+    spliced = bytes(spliced)
+    cfg = TorchCodecConfig(engine="cuda", block_size=bs, **knobs)
+    nblocks = -(-len(spliced) // bs)
+    batches = -(-(nblocks - len(RANDOM_BLOCKS)) // cfg.batch_blocks)
+    log(f"  {len(spliced)} bytes, {nblocks} blocks at bs {bs}, knobs {knobs or 'zero-flag'}")
+    timer = runtime.PhaseTimer()
+    hopper_match.LAUNCHES = hopper_encode.LAUNCHES = 0
+    t0 = time.perf_counter()
+    stream = bytes(runtime.compress(spliced, cfg, timer))
+    first_s = time.perf_counter() - t0
+    launches = (hopper_match.LAUNCHES, hopper_encode.LAUNCHES)
+    if launches != (batches, batches):
+        raise AssertionError(f"compress bs {bs}: launches (match, emit) {launches} for {batches} batches")
+    if timer.notes.get("raw_blocks") != len(RANDOM_BLOCKS):
+        raise AssertionError(f"compress bs {bs}: {timer.notes.get('raw_blocks')} raw blocks, expected {len(RANDOM_BLOCKS)}")
+    log(f"  {launches[0]} match and {launches[1]} emit launches for {batches} batches; notes {timer.notes}")
+    log(f"  first run: {len(spliced) / first_s / 1e9:.3f} GB/s end to end; phases {timer.json()}")
+    e2e_gbs, e2e_s, timer = best_of_3(lambda t: runtime.compress(spliced, cfg, t), len(spliced), stream, "compress")
+    log(f"  best of 3: {e2e_gbs:.3f} GB/s end to end ({e2e_s * 1e3:.1f} ms); phases {timer.json()}")
+    t0 = time.perf_counter()
+    plain_stream = runtime.compress(spliced, TorchCodecConfig(engine="torch", device="cuda:0", block_size=bs, **knobs))
+    plain_s = time.perf_counter() - t0
+    if bytes(plain_stream) != stream:
+        raise AssertionError(f"compress bs {bs}: the cuda engine's stream differs from the torch engine's")
+    log(f"  equal to the torch engine's stream on the GPU ({plain_s:.1f} s, {len(spliced) / plain_s / 1e9:.4f} GB/s)")
+    if bytes(runtime.decompress(stream, cfg)) != spliced:
+        raise AssertionError(f"compress bs {bs}: the cuda decoder does not give the payload back")
+    if native.decompress(stream) != spliced:
+        raise AssertionError(f"compress bs {bs}: the native decoder does not give the payload back")
+    verified = runtime.compress(spliced, TorchCodecConfig(engine="cuda", block_size=bs, verify=True, **knobs))
+    if bytes(verified) != stream:
+        raise AssertionError(f"compress bs {bs}: verify=True gave another stream")
+    log("  decodes back through the cuda engine and native; verify=True passes")
+    t0 = time.perf_counter()
+    host_stream = native.compress(spliced, bs, num_threads=1)
+    host_gbs = len(spliced) / (time.perf_counter() - t0) / 1e9
+    kernel_ms = enc_batch["match_ms"] + enc_batch["emit_ms"]
+    log(f"  stream ratio {len(stream) / len(spliced):.4f}; native compress ratio {len(host_stream) / len(spliced):.4f}")
+    log(f"  kernel only per {enc_batch['blocks']}-block batch: match {enc_batch['match_ms']:.3f} ms + emit "
+        f"{enc_batch['emit_ms']:.3f} ms = {enc_batch['bytes'] / kernel_ms / 1e6:.3f} GB/s")
+    log(f"  plain PyTorch per batch: match {enc_batch['match_plain_ms']:.1f} ms, emit {enc_batch['emit_plain_ms']:.1f} ms")
+    log(f"  native host compress, 1 thread: {host_gbs:.3f} GB/s; end-to-end / host = {e2e_gbs / host_gbs:.3f}")
+    return {"launches": launches, "e2e_gbs": e2e_gbs, "notes": dict(timer.notes)}
+
+
 def main() -> int:
     import torch
 
@@ -185,12 +328,14 @@ def main() -> int:
     from pim_compression_tpu.format import oracle
     import numpy as np
 
+    from pim_compression_tpu.utils.config import preset_overrides
     from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
     from pim_compression_tpu_torch import TorchCodecConfig, runtime
-    from pim_compression_tpu_torch.ops import _build, hopper_decode, hopper_encode, hopper_match
+    from pim_compression_tpu_torch.ops import _build, hopper_encode
     from pim_compression_tpu_torch.runtime import pipeline
     from pim_compression_tpu_torch.utils import streams
 
+    t_start = time.perf_counter()
     # 1. Device.
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -211,15 +356,18 @@ def main() -> int:
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # 3. Kernel against the plain version.
+    # 3. Decode kernel against the plain version.
     if not native.available():
         raise RuntimeError("the native host codec is needed to build the payload")
-    log("phase 3: kernel vs plain PyTorch")
+    log("phase 3: decode kernel vs plain PyTorch")
     t0 = time.perf_counter()
     payload = streams.text_payload(MAIN_BLOCKS * BS - 1000, SEED)
-    log(f"  payload: {len(payload)} bytes in {time.perf_counter() - t0:.2f} s")
+    wide_payload = streams.text_payload(MAIN_BLOCKS * WIDE_BS - 1000, SEED)
+    log(f"  payloads: {len(payload)} and {len(wide_payload)} bytes in {time.perf_counter() - t0:.2f} s")
     stream = native.compress(payload, BS)
-    log(f"  native compress: ratio {len(stream) / len(payload):.4f}")
+    wide_stream = native.compress(wide_payload, WIDE_BS)
+    log(f"  native compress: ratio {len(stream) / len(payload):.4f} at bs {BS}, "
+        f"{len(wide_stream) / len(wide_payload):.4f} at bs {WIDE_BS}")
     main_blocks = stream_blocks(stream)
 
     hand = streams.hand_blocks(BS)
@@ -238,54 +386,32 @@ def main() -> int:
             stats.append(compare("mutants-4096", to_device(muts, bs, device), bs))
     muts = streams.block_mutants(hand + main_blocks[:16], random.Random(SEED + 1), 48, BS)
     stats.append(compare("mutants-32768", to_device(muts, BS, device), BS))
+    # 64 KB: the plain decode's time follows the longest payload, so one
+    # batch holds 128 payload blocks, the far-repeat block, the hand-built
+    # blocks (a copy at offset 65535) and mutants.
+    far = streams.far_repeat_block(WIDE_BS, SEED)
+    wide_hand = streams.hand_blocks(WIDE_BS) + stream_blocks(native.compress(far, WIDE_BS))
+    wide_blocks = stream_blocks(wide_stream)[:128] + wide_hand
+    wide_blocks += streams.block_mutants(wide_blocks, random.Random(SEED + 2), 48, WIDE_BS)
+    want = [wide_payload[i * WIDE_BS : (i + 1) * WIDE_BS] for i in range(128)]
+    want += [oracle.decompress(streams.frame_block(p, n, WIDE_BS)) for p, n in wide_hand]
+    wide_stats = compare("wide-batch-128", to_device(wide_blocks, WIDE_BS, device), WIDE_BS, want)
+    stats.append(wide_stats)
+    bs = 40960
+    sub = wide_payload[: 128 * bs]
+    blocks = stream_blocks(native.compress(sub, bs))
+    blocks += streams.block_mutants(blocks[:16], random.Random(SEED + 3), 16, bs)
+    want = [sub[i * bs : (i + 1) * bs] for i in range(128)]
+    stats.append(compare(f"bs-{bs}-and-mutants", to_device(blocks, bs, device), bs, want))
 
-    # 4. Main path at real size.
-    log(f"phase 4: main path, {len(main_blocks)} blocks at bs {BS}")
-    cfg = TorchCodecConfig(engine="cuda", block_size=BS)
-    batches = -(-len(main_blocks) // cfg.batch_blocks)
-    timer = runtime.PhaseTimer()
-    hopper_decode.LAUNCHES = 0
-    t0 = time.perf_counter()
-    out = runtime.decompress(stream, cfg, timer)
-    e2e_s = time.perf_counter() - t0
-    launches = hopper_decode.LAUNCHES
-    if bytes(out) != payload:
-        raise AssertionError("main path: decompressed bytes differ from the payload")
-    if launches != batches:
-        raise AssertionError(f"main path: {launches} kernel launches for {batches} batches")
-    log(f"  round trip exact; {launches} kernel launches for {batches} batches")
-    log(f"  first run: {len(payload) / e2e_s / 1e9:.3f} GB/s end to end; phases {timer.json()}")
-    runs = []
-    for _ in range(3):
-        timer = runtime.PhaseTimer()
-        t0 = time.perf_counter()
-        out = runtime.decompress(stream, cfg, timer)
-        runs.append((time.perf_counter() - t0, timer))
-        if bytes(out) != payload:
-            raise AssertionError("main path: a repeated run differs from the payload")
-    e2e_s, timer = min(runs, key=lambda r: r[0])
-    e2e_gbs = len(payload) / e2e_s / 1e9
-    log(f"  best of 3: {e2e_gbs:.3f} GB/s end to end ({e2e_s * 1e3:.1f} ms); phases {timer.json()}")
-
+    # 4. Decompress main path at 32 KB.
+    log(f"phase 4: decompress main path at bs {BS}")
+    dec = decompress_main(stream, payload, BS, device, stats[1])
     info = pipeline.scan_frames(stream)
-    comp, clen, olen = pipeline.blockize_compressed(stream, info)
-    n = cfg.batch_blocks
-    args = tuple(torch.from_numpy(a[:n]).to(device) for a in (comp, clen, olen))
-    stats.append(compare(f"main-batch-{n}", args, BS, reps=20))
-    kernel_ms, plain_ms = stats[-1]["ms"], stats[-1]["plain_ms"]
-    batch_bytes = int(olen[:n].sum())
-    log(f"  kernel only: {kernel_ms:.3f} ms per {n}-block batch, {batch_bytes / kernel_ms / 1e6:.3f} GB/s")
-    log(f"  plain PyTorch: {plain_ms:.1f} ms per batch, {batch_bytes / plain_ms / 1e6:.4f} GB/s")
-    t0 = time.perf_counter()
-    host = native.decompress(stream, num_threads=1)
-    host_s = time.perf_counter() - t0
-    if host != payload:
-        raise AssertionError("native host decode differs from the payload")
-    host_gbs = len(payload) / host_s / 1e9
-    log(f"  native host, 1 thread: {host_gbs:.3f} GB/s; end-to-end / host = {e2e_gbs / host_gbs:.3f}")
 
     # 5. Error path.
     log("phase 5: error path")
+    cfg = TorchCodecConfig(engine="cuda", block_size=BS)
     bad = bytearray(stream)
     bad[int(info["payload_off"][1])] = 0x01  # block 1 opens with a copy: nothing to copy from
     try:
@@ -303,87 +429,33 @@ def main() -> int:
         log(f"  declared block size 163840 rejected: {e}")
     else:
         raise AssertionError("a declared block size of 163840 was accepted")
-    try:
-        runtime.decompress(native.compress(payload[: 1 << 20], 65536), cfg)
-    except SnappyError as e:
-        log(f"  64 KB blocks refused by the cuda engine: {e}")
-    else:
-        raise AssertionError("the cuda engine accepted 64 KB blocks")
 
-    # 6. Encode kernels against their plain versions.
+    # 6. Encode kernels against their plain versions at 32 KB and below.
     log("phase 6: match and emit kernels vs plain PyTorch")
     full = np.frombuffer(payload[: (len(payload) // BS) * BS], np.uint8).reshape(-1, BS).copy()
     full_lens = np.full(len(full), BS, np.int32)
     enc_stats = [compare_encode("hand-built", *streams.hand_plain_blocks(BS, SEED), device)]
     enc_stats.append(compare_encode("batch-128", full[:128], full_lens[:128], device))
+    sub = payload[: 2 << 20]
     for bs in (4096, 24576):
         blocks, lens = pipeline.blockize_plain(sub, bs)
         enc_stats.append(compare_encode(f"bs-{bs}", blocks, lens, device))
-    n = TorchCodecConfig().batch_blocks
+    n = cfg.batch_blocks
     enc_stats.append(compare_encode(f"main-batch-{n}", full[:n], full_lens[:n], device, reps=10))
     enc_batch = enc_stats[-1]
 
-    # 7. Compress main path at real size.
-    rng = np.random.default_rng(SEED)
-    spliced = bytearray(payload)
-    for i in RANDOM_BLOCKS:
-        spliced[i * BS : (i + 1) * BS] = rng.integers(0, 256, BS, dtype=np.uint8).tobytes()
-    spliced = bytes(spliced)
-    nblocks = -(-len(spliced) // BS)
-    enc_batches = -(-(nblocks - len(RANDOM_BLOCKS)) // cfg.batch_blocks)
-    log(f"phase 7: compress main path, {len(spliced)} bytes, {nblocks} blocks at bs {BS}")
-    timer = runtime.PhaseTimer()
-    hopper_match.LAUNCHES = hopper_encode.LAUNCHES = 0
-    t0 = time.perf_counter()
-    comp_stream = runtime.compress(spliced, cfg, timer)
-    c_first_s = time.perf_counter() - t0
-    enc_launches = (hopper_match.LAUNCHES, hopper_encode.LAUNCHES)
-    if enc_launches != (enc_batches, enc_batches):
-        raise AssertionError(f"compress: launches (match, emit) {enc_launches} for {enc_batches} batches")
-    if timer.notes.get("raw_blocks") != len(RANDOM_BLOCKS):
-        raise AssertionError(f"compress: {timer.notes.get('raw_blocks')} raw blocks, expected {len(RANDOM_BLOCKS)}")
-    log(f"  {enc_launches[0]} match and {enc_launches[1]} emit launches for {enc_batches} batches; "
-        f"{timer.notes['raw_blocks']} blocks diverted raw")
-    log(f"  first run: {len(spliced) / c_first_s / 1e9:.3f} GB/s end to end; phases {timer.json()}")
-    runs = []
-    for _ in range(3):
-        timer = runtime.PhaseTimer()
-        t0 = time.perf_counter()
-        again = runtime.compress(spliced, cfg, timer)
-        runs.append((time.perf_counter() - t0, timer))
-        if bytes(again) != bytes(comp_stream):
-            raise AssertionError("compress: a repeated run gave another stream")
-    c_e2e_s, timer = min(runs, key=lambda r: r[0])
-    c_e2e_gbs = len(spliced) / c_e2e_s / 1e9
-    log(f"  best of 3: {c_e2e_gbs:.3f} GB/s end to end ({c_e2e_s * 1e3:.1f} ms); phases {timer.json()}")
-    t0 = time.perf_counter()
-    plain_stream = runtime.compress(spliced, TorchCodecConfig(engine="torch", device="cuda:0", block_size=BS))
-    plain_s = time.perf_counter() - t0
-    if bytes(plain_stream) != bytes(comp_stream):
-        raise AssertionError("compress: the cuda engine's stream differs from the torch engine's")
-    log(f"  equal to the torch engine's stream on the GPU ({plain_s:.1f} s, {len(spliced) / plain_s / 1e9:.4f} GB/s)")
-    if bytes(runtime.decompress(bytes(comp_stream), cfg)) != spliced:
-        raise AssertionError("compress: the cuda decoder does not give the payload back")
-    if native.decompress(bytes(comp_stream)) != spliced:
-        raise AssertionError("compress: the native decoder does not give the payload back")
-    if bytes(runtime.compress(spliced, TorchCodecConfig(engine="cuda", block_size=BS, verify=True))) != bytes(comp_stream):
-        raise AssertionError("compress: verify=True gave another stream")
-    log("  decodes back through the cuda engine and native; verify=True passes")
-    t0 = time.perf_counter()
-    host_stream = native.compress(spliced, BS, num_threads=1)
-    host_c_gbs = len(spliced) / (time.perf_counter() - t0) / 1e9
-    batch_mb = enc_batch["bytes"] / 1e6
-    log(f"  stream ratio {len(comp_stream) / len(spliced):.4f}; native compress ratio {len(host_stream) / len(spliced):.4f}")
-    log(f"  kernel only per {n}-block batch: match {enc_batch['match_ms']:.3f} ms + emit {enc_batch['emit_ms']:.3f} ms "
-        f"= {batch_mb / (enc_batch['match_ms'] + enc_batch['emit_ms']):.3f} GB/s")
-    log(f"  plain PyTorch per batch: match {enc_batch['match_plain_ms']:.1f} ms, emit {enc_batch['emit_plain_ms']:.1f} ms")
-    log(f"  native host compress, 1 thread: {host_c_gbs:.3f} GB/s; end-to-end / host = {c_e2e_gbs / host_c_gbs:.3f}")
+    # 7. Compress main path at 32 KB.
+    log(f"phase 7: compress main path at bs {BS}")
+    comp = compress_main(payload, BS, enc_batch)
 
     # 8. Encode error path.
     log("phase 8: encode error path")
-    for knobs in (dict(block_size=65536), dict(block_size=1000), dict(prev_k=2)):
+    refused = (
+        dict(block_size=WIDE_BS, matcher="sweep"), dict(sort_window=16384), dict(block_size=1000), dict(prev_k=2),
+    )
+    for knobs in refused:
         try:
-            runtime.compress(spliced[: 1 << 20], TorchCodecConfig(engine="cuda", **knobs))
+            runtime.compress(payload[: 1 << 20], TorchCodecConfig(engine="cuda", **knobs))
         except SnappyError as e:
             if e.status != SnappyStatus.BAD_ARGUMENT:
                 raise AssertionError(f"{knobs}: refused with {e.status}, not BAD_ARGUMENT") from e
@@ -391,37 +463,65 @@ def main() -> int:
         else:
             raise AssertionError(f"the cuda engine compressed with {knobs}")
 
+    # 9. Encode kernels against their plain versions at 64 KB: the zero-flag
+    # config as the runtime runs it above 32 KB, and each preset's 64 KB row
+    # (balanced and ratio share theirs).
+    log("phase 9: 64 KB match and emit kernels vs plain PyTorch")
+    wide_knobs = {
+        "zero-flag": TorchCodecConfig(block_size=WIDE_BS),
+        **{p: TorchCodecConfig(block_size=WIDE_BS, **preset_overrides(p, WIDE_BS)) for p in ("speed", "balanced")},
+    }
+    wide_knobs = {name: hopper_encode.encode_knobs(cfg) for name, cfg in wide_knobs.items()}
+    wide_full = np.frombuffer(wide_payload[: (len(wide_payload) // WIDE_BS) * WIDE_BS], np.uint8)
+    wide_full = wide_full.reshape(-1, WIDE_BS).copy()
+    wide_lens = np.full(len(wide_full), WIDE_BS, np.int32)
+    for name in ("speed", "balanced"):
+        label = "balanced-and-ratio" if name == "balanced" else name
+        enc_stats.append(compare_encode(f"{label}-128", wide_full[:128], wide_lens[:128], device, wide_knobs[name]))
+    enc_stats.append(compare_encode("zero-flag-far", np.frombuffer(far, np.uint8)[None].copy(),
+                                    np.array([WIDE_BS], np.int32), device, wide_knobs["zero-flag"]))
+    enc_stats.append(compare_encode(f"zero-flag-main-batch-{n}", wide_full[:n], wide_lens[:n], device,
+                                    wide_knobs["zero-flag"], reps=10))
+    wide_enc_batch = enc_stats[-1]
+
+    # 10. 64 KB main paths.
+    log(f"phase 10: 64 KB main paths at bs {WIDE_BS}")
+    wide_comp = compress_main(wide_payload, WIDE_BS, wide_enc_batch)
+    if wide_comp["notes"].get("wide_select") != "sel_all sel_cap=16":
+        raise AssertionError(f"compress bs {WIDE_BS}: notes {wide_comp['notes']}")
+    wide_dec = decompress_main(wide_stream, wide_payload, WIDE_BS, device, wide_stats)
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+
+    def entry(name, source, replaces, launches, max_err, ms, plain_ms):
+        return {
+            "name": name, "route": "cuda", "source": f"pim_compression_tpu_torch/csrc/{source}",
+            "replaces": ", ".join(replaces), "launches": sum(launches.values()),
+            "launches_by_block_size": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        }
+
+    # Times: the 64 KB shapes (decode: the 128-block comparison batch; match
+    # and emit: one 1024-block batch at the zero-flag config).
     print(json.dumps({"kernels": [
-        {
-            "name": "decode_blocks",
-            "route": "cuda",
-            "source": "pim_compression_tpu_torch/csrc/decode.cu",
-            "replaces": "pim_compression_tpu/ops/pallas_decode.py:87, pim_compression_tpu/ops/pallas_decode.py:263",
-            "launches": launches,
-            "max_abs_err": max(st["max_abs_err"] for st in stats),
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-        },
-        {
-            "name": "match_blocks",
-            "route": "cuda",
-            "source": "pim_compression_tpu_torch/csrc/match.cu",
-            "replaces": "pim_compression_tpu/ops/pallas_match.py:131, pim_compression_tpu/ops/pallas_match.py:548",
-            "launches": enc_launches[0],
-            "max_abs_err": max(st["match_err"] for st in enc_stats),
-            "ms": enc_batch["match_ms"],
-            "plain_ms": enc_batch["match_plain_ms"],
-        },
-        {
-            "name": "emit_blocks",
-            "route": "cuda",
-            "source": "pim_compression_tpu_torch/csrc/emit.cu",
-            "replaces": "pim_compression_tpu/ops/pallas_encode.py:559",
-            "launches": enc_launches[1],
-            "max_abs_err": max(st["emit_err"] for st in enc_stats),
-            "ms": enc_batch["emit_ms"],
-            "plain_ms": enc_batch["emit_plain_ms"],
-        },
+        entry(
+            "decode_blocks", "decode.cu",
+            ["pim_compression_tpu/ops/pallas_decode.py:87", "pim_compression_tpu/ops/pallas_decode.py:263",
+             "pim_compression_tpu/ops/pallas_decode.py:620"],
+            {str(BS): dec["launches"], str(WIDE_BS): wide_dec["launches"]},
+            max(st["max_abs_err"] for st in stats), wide_stats["ms"], wide_stats["plain_ms"],
+        ),
+        entry(
+            "match_blocks", "match.cu",
+            ["pim_compression_tpu/ops/pallas_match.py:131", "pim_compression_tpu/ops/pallas_match.py:548",
+             "pim_compression_tpu/ops/pallas_match.py:679", "pim_compression_tpu/ops/pallas_match.py:821"],
+            {str(BS): comp["launches"][0], str(WIDE_BS): wide_comp["launches"][0]},
+            max(st["match_err"] for st in enc_stats), wide_enc_batch["match_ms"], wide_enc_batch["match_plain_ms"],
+        ),
+        entry(
+            "emit_blocks", "emit.cu",
+            ["pim_compression_tpu/ops/pallas_encode.py:559", "pim_compression_tpu/ops/pallas_encode.py:863"],
+            {str(BS): comp["launches"][1], str(WIDE_BS): wide_comp["launches"][1]},
+            max(st["emit_err"] for st in enc_stats), wide_enc_batch["emit_ms"], wide_enc_batch["emit_plain_ms"],
+        ),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -1,8 +1,14 @@
 // Block decode for the block-parallel modified-Snappy format, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of the JAX package, which together decode a batch:
-//   pim_compression_tpu/ops/pallas_decode.py::_dfa_kernel (narrow)  K1, parse DFA
-//   pim_compression_tpu/ops/pallas_decode.py::_route_kernel         K2, route/fill/resolve
+// Replaces the TPU kernels of the JAX package that decode a batch, on both
+// of its paths:
+//   pim_compression_tpu/ops/pallas_decode.py::_dfa_kernel          K1, parse DFA
+//       (narrow, and wide=True: a 17-bit dst and an int16 value plane)
+//   pim_compression_tpu/ops/pallas_decode.py::_route_kernel        K2, route/fill/resolve
+//   pim_compression_tpu/ops/pallas_decode.py::_route_kernel_wide   K2 for 32 KB < bs <= 64 KB
+// The TPU needs the wide path because its tokens pack a row and a value into
+// one int32; a serial walk holds both in registers, so one kernel serves
+// every block size.
 // The TPU design (a lockstep DFA over 1024 lanes, compact/expand routing,
 // prefix-max fill, pointer doubling) exists because a TPU lane has no random
 // access. Hopper has it, so one CTA decodes one block the way the host
@@ -14,8 +20,9 @@
 // can start, so a block's time is its element count times that latency; the
 // bytes moved (payload in, block out) are far below HBM bandwidth. The design
 // keeps the walk off device memory entirely: payload and output block are
-// staged in dynamic shared memory (cap + block_size, ~70 KB at 32 KB blocks,
-// so three CTAs share an SM), the loads and the write-back are 16-byte
+// staged in dynamic shared memory (cap + block_size: ~70 KB at 32 KB blocks,
+// so three CTAs share an SM; 76544 + 65536 = 142080 bytes at 64 KB, one CTA
+// per SM), the loads and the write-back are 16-byte
 // coalesced, and many blocks run at once, one per CTA. Walking several blocks
 // per CTA or scanning tags in parallel is left for later work.
 //
@@ -40,7 +47,7 @@ constexpr int kErrBadOffset = 2;
 constexpr int kErrElementOverrun = 4;
 
 constexpr int kThreads = 128;
-constexpr int kMaxBlockSize = 32768;
+constexpr int kMaxBlockSize = 65536;
 constexpr size_t kMaxSharedBytes = 232448;  // per-block limit on sm_90
 
 __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }

@@ -104,8 +104,9 @@ def load() -> ctypes.CDLL:
         ]
         lib.pim_match_blocks.restype = i32
         lib.pim_match_blocks.argtypes = [
-            ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag
+            ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, near, first_half
             i32, i32, i32, i32, i32, i32,  # num_blocks, block_size, rung_mask, ext_cap, neighbor, max_lag
+            i32, i32,  # prev_k, sel_cap
             i32, ptr,  # device, stream
         ]
         lib.pim_emit_blocks.restype = i32

@@ -1,10 +1,11 @@
 """Block decode: the Hopper kernel's wrapper and its plain PyTorch version.
 
 ``decode_blocks`` is the port of ``pim_compression_tpu.ops.pallas_decode.
-decode_blocks_pallas`` on its narrow path (block_size <= 32768). A CUDA
-tensor goes to the hand-written kernel in ``csrc/decode.cu``, which replaces
-both TPU kernels (``_dfa_kernel`` and ``_route_kernel``). A CPU tensor goes
-to ``decode_blocks_torch``.
+decode_blocks_pallas`` on its narrow (block_size <= 32768) and wide
+(32768 < block_size <= 65536) paths. A CUDA tensor goes to the hand-written
+kernel in ``csrc/decode.cu``, which replaces the TPU kernels of both paths
+(``_dfa_kernel``, ``_route_kernel`` and ``_route_kernel_wide``). A CPU
+tensor goes to ``decode_blocks_torch``.
 
 ``decode_blocks_torch`` transcribes the NumPy spec the TPU kernels are held
 to (``pim_compression_tpu.ops.lane_model``: ``parse_dfa``,
@@ -26,7 +27,7 @@ ERR_ELEMENT_OVERRUN = 4
 ERR_ROUTE_CONFLICT = 8
 ERR_UNRESOLVED = 16
 
-MAX_BLOCK_SIZE = 32768  # the kernel's and the spec's 15-bit packing bound
+MAX_BLOCK_SIZE = 65536  # the format's largest block
 MAX_SHARED_BYTES = 232448  # per-CTA shared memory on sm_90 (cap + block_size)
 
 # DFA modes (lane_model.TAG/EXT/LIT/OFF).
@@ -72,7 +73,8 @@ def decode_blocks_torch(
 
     # Stage 1, parse DFA (lane_model.parse_dfa): one byte of every block per
     # step. Each routed byte or copy record becomes a token: its output row
-    # (dst, -1 = none) and kind << 15 | value (literal byte or offset - 1).
+    # (dst, -1 = none) and kind << 16 | value (literal byte or offset - 1,
+    # 16 bits: the wide path's value plane, pallas_decode.py:52-60).
     steps = max(0, min(cap, int(comp_len.max()))) if nb else 0
     comp_t = comp[:, :steps].t().to(i32)  # [steps, nb]
     tok_dst = torch.full((steps, nb), -1, dtype=i32, device=dev)
@@ -135,7 +137,7 @@ def decode_blocks_torch(
         n_mode = torch.where(off_done, _TAG, n_mode)
 
         tok_dst[p] = torch.where(lit_ok | copy_ok, out_cur, -1)
-        tok_val[p] = torch.where(lit_ok, (_KIND_LIT << 15) | b, (offset - 1) & 0x7FFF)
+        tok_val[p] = torch.where(lit_ok, (_KIND_LIT << 16) | b, (offset - 1) & 0xFFFF)
         out_cur = out_cur + torch.where(is_lit, 1, torch.where(off_done, length, 0))
         mode, cnt, acc, shift, length = n_mode, n_cnt, n_acc, n_shift, n_len
 
@@ -154,16 +156,17 @@ def decode_blocks_torch(
     routed = routed[:block_size]
 
     # Stage 3, fill and resolve (lane_model.fill_and_resolve): a prefix max
-    # of row << 16 | kind << 15 | value gives every row its covering element;
-    # literal rows hold -(byte + 1), copy rows point back by the offset; then
-    # pointer doubling follows the copy chains to their literal bytes.
+    # of row << 17 | kind << 16 | value (int64: a 64 KB block's rows take 16
+    # bits) gives every row its covering element; literal rows hold
+    # -(byte + 1), copy rows point back by the offset; then pointer doubling
+    # follows the copy chains to their literal bytes.
     rows = torch.arange(block_size, dtype=i32, device=dev)[:, None]
     occupied = routed >= 0
-    packed = torch.where(occupied, (rows << 16) | routed, -1)
+    packed = torch.where(occupied, (rows.long() << 17) | routed, -1)
     packed = torch.cummax(packed, dim=0).values
-    cov_kind = (packed >> 15) & 1
-    cov_value = packed & 0x7FFF
-    is_lit_row = occupied & (((routed >> 15) & 1) == _KIND_LIT)
+    cov_kind = (packed >> 16) & 1
+    cov_value = (packed & 0xFFFF).int()
+    is_lit_row = occupied & (((routed >> 16) & 1) == _KIND_LIT)
     S = torch.where(is_lit_row, -((routed & 0xFF) + 1), rows - (cov_value + 1))
     in_range = rows < out_len[None, :]
     bad = in_range & ~is_lit_row & ((cov_kind != 0) | (S >= rows) | (S < 0))
@@ -185,7 +188,7 @@ def decode_blocks(
     """Decode a batch of blocks: the CUDA kernel for CUDA tensors.
 
     comp uint8[nb, cap] (contiguous), comp_len and out_len int32[nb] on the
-    same device, 0 <= out_len <= block_size <= 32768. Any number of blocks.
+    same device, 0 <= out_len <= block_size <= 65536. Any number of blocks.
     Returns (out uint8[nb, block_size], err int32[nb]) on that device; err
     holds the parse DFA's bits. A CPU tensor is decoded by
     ``decode_blocks_torch``. The launch goes on the current stream and does

@@ -2,11 +2,12 @@
 and ``encode_blocks``, which chains the match and emit kernels.
 
 ``encode_blocks`` is the port of ``pim_compression_tpu.ops.pallas_encode.
-encode_blocks_pallas`` on its sorted rung-pick path (block_size <= 32768).
-For CUDA tensors it launches ``csrc/match.cu`` (``hopper_match.match_blocks``)
-and then ``csrc/emit.cu`` (``emit_blocks``), which replaces the TPU kernel
-``_emit_kernel`` and the lazy-1 glue before it. CPU tensors go to the plain
-versions.
+encode_blocks_pallas`` with the sorted matcher on its rung-pick and
+``sel_all`` paths (block_size <= 65536). For CUDA tensors it launches
+``csrc/match.cu`` (``hopper_match.match_blocks``) and then ``csrc/emit.cu``
+(``emit_blocks``), which replaces the TPU kernels ``_emit_kernel`` and
+``_emit_kernel_wide`` and the lazy-1 glue before them. CPU tensors go to the
+plain versions.
 
 ``emit_blocks_torch`` transcribes the NumPy spec the TPU kernel is held to
 (``pim_compression_tpu.ops.lane_model_encode``: ``lazy_defer``,
@@ -24,9 +25,11 @@ from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
 from pim_compression_tpu_torch.ops import _build, hopper_match
 
 # The port's encode envelope: the reference's Pallas envelope (api.py:35,
-# :38-70) cut to the sizes the narrow path covers.
+# :38-70).
 MIN_BLOCK_SIZE = 256
-MAX_BLOCK_SIZE = 32768
+MAX_BLOCK_SIZE = 65536
+NARROW_BLOCK_SIZE = 32768  # above it the reference runs only the select ladder
+WIDE_SEL_CAP = 16  # the select cap the reference's 64 KB rule defaults to
 MAX_SHARED_BYTES = 232448  # per-CTA shared memory on sm_90
 
 # Kernel launches since import (or since a caller reset it). The wrapper
@@ -34,35 +37,48 @@ MAX_SHARED_BYTES = 232448  # per-CTA shared memory on sm_90
 LAUNCHES = 0
 
 
-def encode_knobs(config) -> dict:
+def encode_knobs(config, notes: dict | None = None) -> dict:
     """The matcher knobs of a ``CodecConfig`` on the ported path.
 
-    Raises ``SnappyError(BAD_ARGUMENT)`` for a block size outside the
-    envelope (256 <= bs <= 32768, bs % 128 == 0) or a knob off the sorted
-    rung-pick path, naming the ROADMAP item that ports it. Nothing reroutes.
+    The rung pick runs where ``config.effective_rung_pick`` holds, the
+    ``sel_all`` select ladder where ``sel_all`` and ``sel_cap`` are set.
+    Above 32768 the reference's rule applies (``runtime/api.py:372-383``):
+    a config without both becomes ``sel_all`` with ``sel_cap or 16``, and
+    ``notes["wide_select"]`` says so. Raises ``SnappyError(BAD_ARGUMENT)``
+    for a block size outside the envelope (256 <= bs <= 65536, bs % 128 ==
+    0) or a knob off those paths, naming the ROADMAP item that ports it.
+    Nothing else reroutes.
     """
     bs = config.block_size
-    if bs > MAX_BLOCK_SIZE:
-        gap = f"block_size {bs} > {MAX_BLOCK_SIZE} (the wide path, ROADMAP A item 7)"
-    elif bs < MIN_BLOCK_SIZE or bs % 128:
+    sel_cap, sel_all = config.sel_cap, config.sel_all
+    wide_select = bs > NARROW_BLOCK_SIZE and not (sel_all and sel_cap)
+    if wide_select:
+        sel_cap, sel_all = sel_cap or WIDE_SEL_CAP, True
+    if bs < MIN_BLOCK_SIZE or bs > MAX_BLOCK_SIZE or bs % 128:
         gap = f"block_size {bs}: the encoder takes multiples of 128 in [{MIN_BLOCK_SIZE}, {MAX_BLOCK_SIZE}]"
     elif config.matcher != "sorted":
         gap = f"matcher {config.matcher!r} (the sweep matcher, ROADMAP A item 10)"
-    elif (
-        config.prev_k > 1 or config.sel_cap or config.sel_all or config.stride2_min
-        or config.sort_window or not config.rung_pick
-        or (config.rung_strides and any(s != 1 for s in config.rung_strides))
+    elif config.stride2_min or config.sort_window or (
+        config.rung_strides and any(s != 1 for s in config.rung_strides)
     ):
+        gap = "stride2_min, rung_strides and sort_window (the sort modes, ROADMAP A item 7)"
+    elif not (sel_all or config.effective_rung_pick):
         gap = (
-            "prev_k > 1, sel_cap, sel_all, stride2_min, rung_strides, sort_window "
-            "and rung_pick=False are not ported yet (the select ladder and sort "
-            "modes, ROADMAP A item 7)"
+            "prev_k > 1, sel_cap without sel_all, and rung_pick=False (the "
+            "non-sel_all ladder, ROADMAP A item 7)"
         )
+    elif sel_cap > config.ext_cap:
+        gap = f"sel_cap {sel_cap} > ext_cap {config.ext_cap}"
     else:
-        return dict(
+        knobs = dict(
             rungs=tuple(config.rungs or hopper_match.RUNGS), ext_cap=config.ext_cap,
             neighbor=config.neighbor, max_lag=config.effective_max_lag,
         )
+        if sel_all:
+            knobs.update(prev_k=config.prev_k, sel_cap=sel_cap, sel_all=True)
+        if wide_select and notes is not None:
+            notes["wide_select"] = f"sel_all sel_cap={sel_cap}"
+        return knobs
     raise SnappyError(SnappyStatus.BAD_ARGUMENT, f"encode: {gap}")
 
 
@@ -79,7 +95,7 @@ def _check_inputs(blocks, lens, mlen, mlag, cap: int) -> None:
     if mlen.dtype != torch.uint8 or mlen.shape != (nb, bs):
         raise ValueError(f"mlen must be uint8[{nb}, {bs}]")
     if mlag.dtype != torch.int16 or mlag.shape != (nb, bs):
-        raise ValueError(f"mlag must be int16[{nb}, {bs}]")
+        raise ValueError(f"mlag must be int16[{nb}, {bs}] (a lag's bits, read unsigned)")
     for name, t in (("lens", lens), ("mlen", mlen), ("mlag", mlag)):
         if t.device != blocks.device:
             raise ValueError(f"{name} is on {t.device}, blocks on {blocks.device}")
@@ -91,16 +107,16 @@ def emit_blocks_torch(
     """Plain PyTorch emit of a batch of blocks, on the tensors' device.
 
     blocks uint8[nb, bs], lens int32[nb], mlen uint8[nb, bs] (0 or 4..64)
-    and mlag int16[nb, bs] from the matcher. Returns (comp uint8[nb, cap],
-    sizes int32[nb]); comp bytes at or past a block's size are 0, and bytes
-    that would land at or past ``cap`` are dropped (the caller's overflow
-    check sees the size).
+    and mlag int16[nb, bs] (lag bits, read unsigned) from the matcher.
+    Returns (comp uint8[nb, cap], sizes int32[nb]); comp bytes at or past a
+    block's size are 0, and bytes that would land at or past ``cap`` are
+    dropped (the caller's overflow check sees the size).
     """
     _check_inputs(blocks, lens, mlen, mlag, cap)
     nb, bs = blocks.shape
     dev = blocks.device
     length = mlen.long()
-    off = mlag.long()
+    off = mlag.long() & 0xFFFF
     nxt = torch.zeros_like(length)
     nxt[:, :-1] = length[:, 1:]
     length = torch.where(nxt > length, 0, length)  # lazy_defer
@@ -192,7 +208,7 @@ def emit_blocks(
     if not all(t.is_contiguous() for t in (blocks, lens, mlen, mlag)):
         raise ValueError("emit_blocks needs contiguous tensors")
     nb, bs = blocks.shape
-    smem = 4 * _round16(bs) + 32 + _round16(cap)  # as pim_emit_blocks
+    smem = 2 * _round16(bs) + 32 + _round16(cap)  # as pim_emit_blocks
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"cap {cap} and block_size {bs} exceed shared memory")
     comp = torch.empty((nb, cap), dtype=torch.uint8, device=blocks.device)
@@ -217,29 +233,25 @@ def _round16(n: int) -> int:
 
 
 def encode_blocks_torch(
-    blocks: torch.Tensor, lens: torch.Tensor, *, cap: int, rungs=(4, 16), ext_cap: int = 48,
-    neighbor: bool = True, max_lag: int = 8192,
+    blocks: torch.Tensor, lens: torch.Tensor, *, cap: int, **knobs
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain versions of both stages, on the tensors' device."""
-    mlen, mlag = hopper_match.match_blocks_torch(
-        blocks, lens, rungs=rungs, ext_cap=ext_cap, neighbor=neighbor, max_lag=max_lag
-    )
+    """The plain versions of both stages, on the tensors' device; ``knobs``
+    as ``hopper_match.match_blocks_torch`` takes them."""
+    mlen, mlag = hopper_match.match_blocks_torch(blocks, lens, **knobs)
     return emit_blocks_torch(blocks, lens, mlen, mlag, cap)
 
 
 def encode_blocks(
-    blocks: torch.Tensor, lens: torch.Tensor, *, cap: int, rungs=(4, 16), ext_cap: int = 48,
-    neighbor: bool = True, max_lag: int = 8192,
+    blocks: torch.Tensor, lens: torch.Tensor, *, cap: int, **knobs
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Compress a batch of blocks: match, then emit.
 
-    blocks uint8[nb, bs] (bs <= 32768, bytes past ``lens`` read as zero),
-    lens int32[nb]. Returns (comp uint8[nb, cap], sizes int32[nb]), the
-    bytes ``lane_model_encode.encode_lanes(matcher="sorted",
-    rung_pick=True, ...)`` emits. CUDA tensors run the two kernels, CPU
-    tensors the two plain versions.
+    blocks uint8[nb, bs] (bs <= 65536, bytes past ``lens`` read as zero),
+    lens int32[nb]; ``knobs`` as ``hopper_match.match_blocks`` takes them.
+    Returns (comp uint8[nb, cap], sizes int32[nb]), the bytes
+    ``lane_model_encode.encode_lanes(matcher="sorted", ...)`` emits with
+    ``rung_pick=True`` or ``sel_all=True``. CUDA tensors run the two
+    kernels, CPU tensors the two plain versions.
     """
-    mlen, mlag = hopper_match.match_blocks(
-        blocks, lens, rungs=rungs, ext_cap=ext_cap, neighbor=neighbor, max_lag=max_lag
-    )
+    mlen, mlag = hopper_match.match_blocks(blocks, lens, **knobs)
     return emit_blocks(blocks, lens, mlen, mlag, cap)

@@ -61,12 +61,6 @@ def decompress(
         nb = len(info["payload_off"])
         block_size = int(info["block_size"])
         total_len = int(info["total_len"])
-        if block_size > hopper_decode.MAX_BLOCK_SIZE:
-            raise SnappyError(
-                SnappyStatus.BAD_ARGUMENT,
-                f"block_size {block_size}: the {config.engine} engine decodes "
-                f"blocks up to {hopper_decode.MAX_BLOCK_SIZE} bytes",
-            )
         if nb == 0:
             return b""
         comp, comp_len, out_len = pipeline.blockize_compressed(stream, info)
@@ -121,9 +115,11 @@ def compress(
     The device engines blockize the input, divert incompressible blocks to
     raw literal frames (``config.raw_triage``), and encode the rest in
     batches of ``config.batch_blocks`` (plus a tail batch), each h2d ->
-    match + emit -> d2h, synchronously. Only the sorted rung-pick matcher
-    at 256 <= block_size <= 32768 (a multiple of 128) is ported; any other
-    size or knob raises ``SnappyError(BAD_ARGUMENT)``. With
+    match + emit -> d2h, synchronously. The sorted matcher's rung pick and
+    its ``sel_all`` select ladder at 256 <= block_size <= 65536 (a multiple
+    of 128) are ported, with the reference's switch to the ladder above
+    32768 (``timer.notes["wide_select"]``); any other size or knob raises
+    ``SnappyError(BAD_ARGUMENT)`` (``hopper_encode.encode_knobs``). With
     ``config.verify``, each batch is decoded again on its device and
     compared with its input blocks; a mismatch raises ``SnappyError``.
     """
@@ -137,7 +133,8 @@ def compress(
         with timer.phase("kernel"):
             return native.compress(data, config.block_size, num_threads=config.num_threads)
 
-    knobs = hopper_encode.encode_knobs(config)
+    select_notes: dict = {}
+    knobs = hopper_encode.encode_knobs(config, select_notes)
     device = resolve_device(config.engine, config.device)
     on_cuda = device.type == "cuda"
     block_size = config.block_size
@@ -156,6 +153,8 @@ def compress(
         dev_idx = np.flatnonzero(~raw)
         if nb - dev_idx.size:
             timer.notes["raw_blocks"] = int(nb - dev_idx.size)
+        if dev_idx.size:  # as the reference, noted only where a batch runs
+            timer.notes.update(select_notes)
         comp = np.empty((nb, cap), dtype=np.uint8)
         sizes = np.empty(nb, dtype=np.int32)
 

@@ -14,10 +14,10 @@ from pim_compression_tpu.utils.config import CodecConfig
 ENGINES = ("cuda", "torch", "native", "oracle")
 
 # Reference engine -> port engine. The Pallas kernels become the Hopper
-# kernels; the portable XLA engine becomes plain PyTorch.
+# kernels, whose plain PyTorch versions (the "torch" engine) give the same
+# stream. The portable XLA engine emits another stream and has no port yet.
 _FROM_REFERENCE_ENGINE = {
     "pallas": "cuda",
-    "xla": "torch",
     "native": "native",
     "oracle": "oracle",
 }
@@ -46,7 +46,17 @@ class TorchCodecConfig(CodecConfig):
 
     @classmethod
     def from_reference(cls, cfg: CodecConfig, device=None) -> "TorchCodecConfig":
-        """Map a reference config onto the port (pallas -> cuda, xla -> torch)."""
+        """Map a reference config onto the port (pallas -> cuda).
+
+        Raises ``ValueError`` for the reference's ``xla`` engine: the port
+        has nothing that emits its stream until the portable engine is
+        ported (ROADMAP A item 6).
+        """
+        if cfg.engine not in _FROM_REFERENCE_ENGINE:
+            raise ValueError(
+                f"the reference's {cfg.engine!r} engine is not ported yet "
+                "(the portable engine, ROADMAP A item 6)"
+            )
         fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(CodecConfig)}
         fields["engine"] = _FROM_REFERENCE_ENGINE[cfg.engine]
         return cls(**fields, device=device)

@@ -106,6 +106,15 @@ def hand_plain_blocks(block_size: int, seed: int = 0, far_lag: int = 8193) -> tu
     return np.stack(rows), np.array(lens, dtype=np.int32)
 
 
+def far_repeat_block(block_size: int, seed: int = 0) -> bytes:
+    """A block of random bytes whose last 7/16 repeat its first bytes at lag
+    9/16 of the block: any compressor's copies there take offsets above
+    32768 in a 64 KB block."""
+    lag = block_size * 9 // 16
+    head = np.random.default_rng(seed).integers(0, 256, lag, dtype=np.uint8).tobytes()
+    return head + head[: block_size - lag]
+
+
 def frame_block(payload: bytes, out_len: int, block_size: int) -> bytes:
     """A one-block framed stream: header varints, u32 size, payload."""
     return (
@@ -202,6 +211,7 @@ def block_mutants(
                 b[p + 1] = off & 0xFF
             else:
                 width = 2 if kind == 2 else 4
+                off = min(off, (1 << (8 * width)) - 1)  # past 65535 only at 64 KB blocks
                 b[p + 1 : p + 1 + width] = off.to_bytes(width, "little")
         elif what == 4 and literals:
             p = rng.choice(literals)[0]

@@ -128,6 +128,22 @@ def test_torch_compress_equals_jax_pallas_stream():
     assert oracle.decompress(bytes(got)) == data
 
 
+def test_torch_compress_ladder_equals_jax_pallas_stream():
+    # The sel_all ladder with a prev step below 32 KB, where the reference
+    # takes it as configured: the same stream as its pallas engine.
+    from pim_compression_tpu import runtime as ref_runtime
+
+    knobs = dict(rungs=(4, 32), prev_k=3, sel_cap=12, sel_all=True, max_lag=600)
+    data = _payload(40, 1024, (7,), 13)
+    ref_timer = ref_runtime.PhaseTimer()
+    want = ref_runtime.compress(data, CodecConfig(engine="pallas", block_size=1024, **knobs), ref_timer)
+    timer = runtime.PhaseTimer()
+    got = runtime.compress(data, _torch_cfg(block_size=1024, **knobs), timer)
+    assert bytes(got) == bytes(want)
+    assert timer.notes == ref_timer.notes == {"raw_blocks": 1}
+    assert oracle.decompress(bytes(got)) == data
+
+
 @pytest.mark.parametrize(
     "data",
     [b"", b"x", bytes(random.Random(9).randbytes(6 * 1024)), None],
@@ -173,6 +189,43 @@ def test_verify_catches_a_bad_encoder(monkeypatch):
     runtime.compress(data, _torch_cfg(block_size=256))  # unverified, it passes
 
 
+@pytest.mark.parametrize(
+    "knobs", [{}, dict(rungs=(4,), prev_k=2, sel_cap=0)], ids=["zero-flag", "prev-k-2"]
+)
+def test_torch_compress_64k_equals_the_spec(knobs):
+    # About 2 x 64 KB + 9000 bytes with one seeded random block. Above 32768
+    # the reference switches every config to the sel_all ladder with
+    # sel_cap 16 (runtime/api.py:372-383, tests/test_runtime.py:177-210);
+    # its interpret-mode run at 64 KB is too slow here, so the stream is
+    # held against the NumPy spec's blocks with the random block raw.
+    from pim_compression_tpu.ops import lane_model_encode as lme
+
+    bs = 65536
+    rng = np.random.default_rng(64)
+    # Blocks that compress well keep the plain decode's step count low.
+    data = streams.text_payload(bs // 16, 64) * 16 + rng.integers(0, 256, bs, dtype=np.uint8).tobytes()
+    data += streams.far_repeat_block(bs, 65)[:9000]
+    cfg = _torch_cfg(block_size=bs, **knobs)
+    timer = runtime.PhaseTimer()
+    got = runtime.compress(data, cfg, timer)
+    assert timer.notes == {"raw_blocks": 1, "wide_select": "sel_all sel_cap=16"}
+
+    blocks, lens = ref_pipeline.blockize_plain(data, bs, 3)
+    raw = ref_pipeline.triage_incompressible(blocks, lens)
+    assert raw.tolist() == [False, True, False]
+    cap = pipeline.padded_capacity(bs)
+    comp, sizes = np.zeros((3, cap), np.uint8), np.zeros(3, np.int32)
+    spec = dict(rungs=cfg.rungs, prev_k=cfg.prev_k, sel_cap=16, sel_all=True, ext_cap=48, neighbor=True, max_lag=0)
+    comp[~raw], sizes[~raw] = lme.encode_lanes(blocks[~raw], lens[~raw], bs, cap, matcher="sorted", **spec)
+    ref_pipeline.raw_literal_frames(blocks, lens, comp, sizes, np.flatnonzero(raw))
+    assert bytes(got) == bytes(ref_pipeline.assemble_compressed(comp, sizes, len(data), bs, 3))
+    assert oracle.decompress(bytes(got)) == data
+    if native.available():
+        assert native.decompress(bytes(got)) == data
+    if not knobs:  # once: the raw block's payload takes the plain decode 65540 lockstep steps
+        assert bytes(runtime.decompress(bytes(got), _torch_cfg())) == data
+
+
 # ---------------------------------------------------------------------------
 # What is not ported raises; nothing falls back.
 # ---------------------------------------------------------------------------
@@ -182,8 +235,8 @@ def test_verify_catches_a_bad_encoder(monkeypatch):
 @pytest.mark.parametrize(
     "knobs",
     [
-        dict(block_size=65536), dict(block_size=1000), dict(block_size=128), dict(prev_k=2),
-        dict(sel_cap=16), dict(sel_cap=16, sel_all=True), dict(stride2_min=16),
+        dict(block_size=65536, matcher="sweep"), dict(block_size=1000), dict(block_size=128), dict(prev_k=2),
+        dict(sel_cap=16), dict(sel_cap=16, sel_all=True, stride2_min=16), dict(stride2_min=16),
         dict(rung_strides=(1, 2)), dict(sort_window=512), dict(matcher="sweep"), dict(rung_pick=False),
     ],
     ids=[

@@ -60,10 +60,12 @@ def _on_device(blocks, block_size, device):
     return tuple(torch.from_numpy(a).to(device) for a in (comp, clen, olen))
 
 
-@pytest.mark.parametrize("block_size", [256, 4096, 24576])
+@pytest.mark.parametrize("block_size", [256, 4096, 24576, 65536])
 def test_cuda_kernel_matches_plain_version(cuda_device, block_size):
     stream = _compress(streams.text_payload(6 * block_size + 99, block_size), block_size)
     base = streams.hand_blocks(block_size) + _blocks(stream)
+    if block_size > 32768:  # copies at offsets above 32768
+        base += _blocks(_compress(streams.far_repeat_block(block_size, 1), block_size))
     blocks = base + streams.block_mutants(base, random.Random(block_size), 48, block_size)
     args = _on_device(blocks, block_size, cuda_device)
     launches = hopper_decode.LAUNCHES
@@ -81,6 +83,16 @@ def test_cuda_kernel_decodes_32k_stream(cuda_device):
     data = streams.text_payload(40 * 32768 + 5000, 3)
     blocks = _blocks(_compress(data, 32768))
     out, err = hopper_decode.decode_blocks(*_on_device(blocks, 32768, cuda_device), block_size=32768)
+    assert not err.any()
+    flat = out.cpu().numpy().reshape(-1)[: len(data)]
+    assert flat.tobytes() == data
+
+
+@pytest.mark.parametrize("block_size", [40960, 65536])
+def test_cuda_kernel_decodes_64k_stream(cuda_device, block_size):
+    data = streams.text_payload(20 * 65536 + 5000, 3) + streams.far_repeat_block(65536, 2)
+    blocks = _blocks(_compress(data, block_size))
+    out, err = hopper_decode.decode_blocks(*_on_device(blocks, block_size, cuda_device), block_size=block_size)
     assert not err.any()
     flat = out.cpu().numpy().reshape(-1)[: len(data)]
     assert flat.tobytes() == data
@@ -109,21 +121,29 @@ def test_cuda_engine_round_trip(cuda_device):
 
 
 MAIN = dict(rungs=(4, 16), ext_cap=48, neighbor=True, max_lag=8192)
+# The 64 KB rows: the zero-flag config after the switch to the select
+# ladder, and the presets' rungs=(4,), prev_k=2 (max_lag 0 or 16384).
+WIDE = dict(rungs=(4, 16), ext_cap=48, neighbor=True, max_lag=0, sel_cap=16, sel_all=True)
+PRESET = dict(rungs=(4,), ext_cap=48, neighbor=True, max_lag=16384, prev_k=2, sel_cap=16, sel_all=True)
 
 
 @pytest.mark.parametrize(
     "block_size, knobs",
     [(256, MAIN), (4096, MAIN), (24576, MAIN), (32768, MAIN),
-     (4096, dict(rungs=(4, 8, 16, 32, 64), ext_cap=64, neighbor=False, max_lag=0))],
-    ids=["256", "4096", "24576", "32768", "4096-all-rungs"],
+     (4096, dict(rungs=(4, 8, 16, 32, 64), ext_cap=64, neighbor=False, max_lag=0)),
+     (4096, dict(PRESET, rungs=(4, 8, 64), prev_k=4, sel_cap=8, max_lag=300)),
+     (32768, PRESET), (40960, WIDE), (65536, WIDE), (65536, PRESET), (65536, MAIN)],
+    ids=["256", "4096", "24576", "32768", "4096-all-rungs", "4096-ladder", "32768-ladder",
+         "40960-wide", "65536-wide", "65536-preset", "65536-rung-pick"],
 )
 def test_cuda_encode_kernels_match_plain_versions(cuda_device, block_size, knobs):
     n = 300 if block_size <= 4096 else 40
     rb, rl = streams.plain_blocks(block_size, n, block_size)
     hb, hl = streams.hand_plain_blocks(block_size, block_size)
     text = np.frombuffer(streams.text_payload(8 * block_size, 5), np.uint8).reshape(8, block_size)
-    blocks = torch.from_numpy(np.concatenate([rb, hb, text])).to(cuda_device)
-    lens = torch.from_numpy(np.concatenate([rl, hl, np.full(8, block_size, np.int32)])).to(cuda_device)
+    far = np.frombuffer(streams.far_repeat_block(block_size, 3), np.uint8)[None]
+    blocks = torch.from_numpy(np.concatenate([rb, hb, text, far])).to(cuda_device)
+    lens = torch.from_numpy(np.concatenate([rl, hl, np.full(9, block_size, np.int32)])).to(cuda_device)
     launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES
     mlen, mlag = hopper_match.match_blocks(blocks, lens, **knobs)
     cap = pipeline.padded_capacity(block_size)
@@ -160,6 +180,31 @@ def test_cuda_engine_compress_round_trip(cuda_device):
     # 7 blocks on the device in batches of 2, 2, 2 and 1.
     assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES) == (launches[0] + 4, launches[1] + 4)
     plain = runtime.compress(data, TorchCodecConfig(engine="torch", device="cuda:0", block_size=32768))
+    assert bytes(stream) == bytes(plain)
+    assert bytes(runtime.decompress(bytes(stream), TorchCodecConfig(engine="cuda"))) == data
+    assert oracle.decompress(bytes(stream)) == data
+
+
+@pytest.mark.parametrize("preset", [None, "speed"])
+def test_cuda_engine_compress_round_trip_64k(cuda_device, preset):
+    from pim_compression_tpu.utils.config import preset_overrides
+
+    rng = np.random.default_rng(9)
+    text = streams.text_payload(4 * 65536, 10)
+    data = (
+        text[:65536] + rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()
+        + streams.far_repeat_block(65536, 4) + text[65536:] + b"tail"
+    )
+    knobs = preset_overrides(preset, 65536) if preset else {}
+    cfg = TorchCodecConfig(engine="cuda", block_size=65536, batch_blocks=2, verify=True, **knobs)
+    launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES
+    timer = runtime.PhaseTimer()
+    stream = runtime.compress(data, cfg, timer)
+    assert timer.notes["raw_blocks"] == 1
+    assert timer.notes.get("wide_select") == (None if preset else "sel_all sel_cap=16")
+    # 6 blocks on the device in batches of 2.
+    assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES) == (launches[0] + 3, launches[1] + 3)
+    plain = runtime.compress(data, TorchCodecConfig(engine="torch", device="cuda:0", block_size=65536, **knobs))
     assert bytes(stream) == bytes(plain)
     assert bytes(runtime.decompress(bytes(stream), TorchCodecConfig(engine="cuda"))) == data
     assert oracle.decompress(bytes(stream)) == data

@@ -146,6 +146,85 @@ def test_torch_decode_malformed_verdicts(block_size):
     assert (got[1] != 0).sum() >= 24  # the set is mostly malformed
 
 
+# ---------------------------------------------------------------------------
+# 64 KB blocks (the TPU's wide path).
+# ---------------------------------------------------------------------------
+
+
+def _wide_payload(seed: int) -> bytes:
+    """Two 64 KB blocks that compress to a few KB (the plain decode's time
+    follows the longest payload) and a partial last block; the first block
+    repeats 512 random bytes at lag 40000, past 32768."""
+    rng = np.random.default_rng(seed)
+    far = np.zeros(65536, np.uint8)
+    far[:512] = far[40000:40512] = rng.integers(0, 256, 512, dtype=np.uint8)
+    return far.tobytes() + streams.text_payload(4096, seed) * 16 + streams.text_payload(9000, seed + 1)
+
+
+def _max_offset(payload: bytes) -> int:
+    offsets = [0]
+    for p, kind, _ in streams._elements(payload):
+        if kind >= 2:  # COPY_2 and COPY_4: 16 or 32 offset bits
+            offsets.append(int.from_bytes(payload[p + 1 : p + 1 + 2 * (kind - 1)], "little"))
+    return max(offsets)
+
+
+@pytest.mark.parametrize("codec", ["oracle", "native"])
+def test_torch_decode_64k_streams(codec):
+    from pim_compression_tpu import native
+    from pim_compression_tpu_torch import TorchCodecConfig, runtime
+
+    if codec == "native" and not native.available():
+        pytest.skip("native host codec not built")
+    data = _wide_payload(64)
+    stream = (oracle if codec == "oracle" else native).compress(data, 65536)
+    blocks = _stream_blocks(stream)
+    assert len(blocks) == 3 and _max_offset(blocks[0][0]) > 32768
+    assert bytes(runtime.decompress(stream, TorchCodecConfig(engine="torch", batch_blocks=2))) == data
+
+
+def test_torch_decode_64k_blocks_and_verdicts():
+    # One batch (the plain decode's time follows the longest payload): the
+    # hand-built blocks with a copy at offset 65535, the blocks of an oracle
+    # and a native stream, and mutants of them. Valid blocks decode to the
+    # oracle's bytes; every verdict equals oracle.decompress's.
+    from pim_compression_tpu import native
+
+    bs = 65536
+    data = _wide_payload(65)
+    base = streams.hand_blocks(bs)[-2:] + _stream_blocks(oracle.compress(data, bs))
+    if native.available():
+        base += _stream_blocks(native.compress(data, bs))
+    blocks = base + streams.block_mutants(base, random.Random(bs), 16, bs)
+    comp, clen, olen = _slots(blocks, bs)
+    out, err = _torch_decode(comp, clen, olen, bs)
+    for i, (payload, n) in enumerate(blocks):
+        try:
+            want = oracle.decompress(streams.frame_block(payload, n, bs))
+        except ValueError:
+            want = None
+        assert (err[i] == 0) == (want is not None), f"block {i}"
+        if want is not None:
+            assert out[i, :n].tobytes() == want, f"block {i}"
+    assert not err[: len(base)].any() and (err != 0).sum() >= 8
+    assert b"".join(out[i, : base[i][1]].tobytes() for i in range(2, 5)) == data
+
+
+def test_torch_decode_matches_pallas_wide_interpret():
+    # The TPU's wide path (two-plane tokens, _route_kernel_wide) forced on at
+    # bs 1024, as test_pallas_decode_wide_token_path runs it: bytes and error
+    # bits equal on valid blocks and mutants.
+    bs = 1024
+    valid = _stream_blocks(oracle.compress(_mixed_payload(5), bs)) + streams.hand_blocks(bs)
+    blocks = valid + streams.block_mutants(valid, random.Random(7), 48, bs)
+    blocks += [(b"", 0)] * (pallas_decode.LANES - len(blocks))
+    comp, clen, olen = _slots(blocks, bs)
+    out_p, err_p = pallas_decode.decode_blocks_pallas(comp, clen, olen, block_size=bs, interpret=True, wide=True)
+    got = _torch_decode(comp, clen, olen, bs)
+    _assert_same(got, (np.asarray(out_p), np.asarray(err_p)), olen)
+    assert not got[1][: len(valid)].any() and (got[1] != 0).sum() >= 24
+
+
 def test_torch_decode_empty_batch_and_blocks():
     comp = torch.zeros((0, 384), dtype=torch.uint8)
     none = torch.zeros(0, dtype=torch.int32)
@@ -183,7 +262,7 @@ def test_decode_blocks_cpu_routes_to_plain_version():
     "bad",
     [
         dict(block_size=0),
-        dict(block_size=65536),
+        dict(block_size=65537),
         dict(comp=torch.zeros((2, 384), dtype=torch.int32)),
         dict(comp_len=torch.zeros(2, dtype=torch.int64)),
         dict(out_len=torch.zeros(3, dtype=torch.int32)),

@@ -18,6 +18,7 @@ from pim_compression_tpu.format import oracle
 from pim_compression_tpu.format.varint import encode_varint32
 from pim_compression_tpu.ops import lane_model_encode as lme
 from pim_compression_tpu.ops import pallas_encode
+from pim_compression_tpu.utils.config import preset_overrides
 from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
@@ -127,6 +128,82 @@ def test_torch_encode_matches_pallas_interpret():
     _assert_same_blocks(comp.numpy(), sizes.numpy(), np.asarray(comp_k), np.asarray(sizes_k))
 
 
+# ---------------------------------------------------------------------------
+# The select ladder and 64 KB blocks.
+# ---------------------------------------------------------------------------
+
+# The zero-flag config at 64 KB after the reference's switch to the ladder
+# (runtime/api.py:372-383), and each preset's 64 KB row.
+WIDE = dict(rungs=(4, 16), ext_cap=48, neighbor=True, max_lag=0, sel_cap=16, sel_all=True)
+WIDE_CONFIGS = {
+    "zero-flag": WIDE,
+    **{p: dict(preset_overrides(p, 65536), ext_cap=48, neighbor=True) for p in ("speed", "balanced", "ratio")},
+}
+
+
+def _wide_inputs(block_size: int, seed: int):
+    """A text block, a block whose second part repeats its first at lag
+    9/16 of the block, and a partial block of zeros."""
+    text = np.frombuffer(streams.text_payload(block_size, seed), np.uint8)
+    far = np.frombuffer(streams.far_repeat_block(block_size, seed), np.uint8)
+    blocks = np.stack([text, far, np.zeros(block_size, np.uint8)])
+    return blocks, np.array([block_size, block_size, block_size - 999], np.int32)
+
+
+def _ladder_knobs(cfg):
+    return {k: v for k, v in cfg.items() if k not in ("sweep_span",)}
+
+
+@pytest.mark.parametrize(
+    "block_size, config", [(65536, c) for c in WIDE_CONFIGS] + [(40960, "zero-flag")],
+    ids=[f"65536-{c}" for c in WIDE_CONFIGS] + ["40960-zero-flag"],
+)
+def test_torch_match_64k_matches_lane_model(block_size, config):
+    knobs = _ladder_knobs(WIDE_CONFIGS[config])
+    blocks, lens = _wide_inputs(block_size, 31)
+    mlen, mlag = hopper_match.match_blocks_torch(torch.from_numpy(blocks), torch.from_numpy(lens), **knobs)
+    # The spec at the 65536-row sort the Pallas path pads to (pallas_encode.py:1401-1423).
+    padded = np.zeros((len(lens), 65536), np.uint8)
+    padded[:, :block_size] = blocks
+    want_len, want_lag = lme.match_search_sorted(padded.T.astype(np.int32), lens, **knobs)
+    np.testing.assert_array_equal(mlen.numpy().astype(np.int32), want_len.T[:, :block_size])
+    np.testing.assert_array_equal(mlag.numpy().astype(np.int64) & 0xFFFF, want_lag.T[:, :block_size])
+    assert int(want_lag.max()) > 32768 or knobs["max_lag"]  # lags past int16 reach the output
+
+
+@pytest.mark.parametrize("block_size", [256, 1024])
+def test_torch_encode_ladder_matches_pallas_wide_interpret(block_size):
+    # The TPU's select-then-extend, prev-step and wide emit kernels, forced
+    # onto the wide path at small sizes, as test_pallas_encode_wide_emit_parity
+    # runs them: one 128-block group with the 64 KB presets' ladder.
+    import jax.numpy as jnp
+
+    knobs = dict(rungs=(4,), prev_k=2, sel_cap=16, sel_all=True, ext_cap=48, neighbor=True, max_lag=0)
+    blocks, lens = _inputs(block_size, 3 * block_size, pallas_encode.LANES - 9)
+    comp_k, sizes_k = pallas_encode.encode_blocks_pallas(
+        jnp.asarray(blocks), jnp.asarray(lens), block_size=block_size, matcher="sorted",
+        wide=True, interpret=True, **knobs,
+    )
+    comp, sizes = hopper_encode.encode_blocks_torch(
+        torch.from_numpy(blocks), torch.from_numpy(lens), cap=pipeline.padded_capacity(block_size), **knobs
+    )
+    _assert_same_blocks(comp.numpy(), sizes.numpy(), np.asarray(comp_k), np.asarray(sizes_k))
+
+
+@pytest.mark.parametrize("config", list(WIDE_CONFIGS))
+def test_torch_encode_64k_matches_encode_lanes(config):
+    blocks, lens = _wide_inputs(65536, 32)
+    knobs = _ladder_knobs(WIDE_CONFIGS[config])
+    cap = pipeline.padded_capacity(65536)
+    comp, sizes = hopper_encode.encode_blocks(torch.from_numpy(blocks), torch.from_numpy(lens), cap=cap, **knobs)
+    comp_ref, sizes_ref = lme.encode_lanes(blocks, lens, 65536, cap, matcher="sorted", **knobs)
+    _assert_same_blocks(comp.numpy(), sizes.numpy(), comp_ref, sizes_ref)
+    for i in range(len(lens)):
+        framed = encode_varint32(int(lens[i])) + encode_varint32(65536)
+        framed += int(sizes[i]).to_bytes(4, "little") + comp[i, : sizes[i]].numpy().tobytes()
+        assert oracle.decompress(framed) == blocks[i, : lens[i]].tobytes()
+
+
 def test_cpu_wrappers_take_the_plain_versions():
     blocks, lens = _inputs(256, 5, 4)
     args = torch.from_numpy(blocks), torch.from_numpy(lens)
@@ -158,8 +235,8 @@ def test_wrappers_reject_bad_tensors():
     mlag = torch.zeros((2, 256), dtype=torch.int16)
     with pytest.raises(ValueError):  # lens of the wrong type
         hopper_match.match_blocks(blocks, lens.long())
-    with pytest.raises(ValueError):  # blocks larger than the 15-bit positions
-        hopper_match.match_blocks(torch.zeros((1, 32769), dtype=torch.uint8), lens[:1])
+    with pytest.raises(ValueError):  # blocks larger than the format's 64 KB
+        hopper_match.match_blocks(torch.zeros((1, 65537), dtype=torch.uint8), lens[:1])
     with pytest.raises(ValueError):  # mlag of the wrong type
         hopper_encode.emit_blocks(blocks, lens, mlen, mlag.int(), 512)
     with pytest.raises(ValueError):  # mlen of the wrong shape

@@ -63,10 +63,14 @@ def test_config_defaults_and_engines():
 
 
 @pytest.mark.parametrize(
-    "ref_engine, engine", [("pallas", "cuda"), ("xla", "torch"), ("native", "native"), ("oracle", "oracle")]
+    "ref_engine, engine", [("pallas", "cuda"), ("xla", None), ("native", "native"), ("oracle", "oracle")]
 )
 def test_config_from_reference(ref_engine, engine):
     ref = CodecConfig(engine=ref_engine, block_size=8192, batch_blocks=64, validate=False, max_lag=4096)
+    if engine is None:  # the xla engine's stream has no port yet
+        with pytest.raises(ValueError, match="ROADMAP A item 6"):
+            TorchCodecConfig.from_reference(ref, device="cpu")
+        return
     cfg = TorchCodecConfig.from_reference(ref, device="cpu")
     assert isinstance(cfg, CodecConfig)
     assert cfg.engine == engine and cfg.device == "cpu"
@@ -162,13 +166,6 @@ def test_validate_names_the_corrupt_block(scan_path):
     assert len(out) == len(data) and out[:1024] == data[:1024]
     with pytest.raises(ValueError):
         oracle.decompress(bytes(stream))
-
-
-def test_device_engines_refuse_64k_blocks():
-    stream = oracle.compress(b"abc" * 30000, 65536)
-    with pytest.raises(SnappyError) as e:
-        runtime.decompress(stream, _torch_cfg())
-    assert e.value.status == SnappyStatus.BAD_ARGUMENT
 
 
 def test_cuda_engine_raises_without_a_gpu(monkeypatch):
