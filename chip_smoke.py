@@ -33,9 +33,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      pass verify=True, and both kernels' launch counts must equal the batch
      count. Prints end-to-end, kernel-only, plain-PyTorch and single-threaded
      host GB/s and the stream ratio beside the native codec's;
-  8. encode error path: the sweep matcher, a sort mode, a block size that is
-     not a multiple of 128 and the ladder without sel_all are refused with
-     BAD_ARGUMENT;
+  8. encode error path: the sweep matcher above 16384 and granular at a block
+     size that is not a multiple of 256, a sort mode, a block size that is not
+     a multiple of 128 and the ladder without sel_all are refused with
+     BAD_ARGUMENT, and no kernel is launched;
   9. 64 KB kernels vs plain: the match and emit kernels on 128 blocks of the
      64 KB payload at the zero-flag config (switched to the sel_all ladder)
      and at each preset's 64 KB row: every length, lag, size and byte equal;
@@ -45,9 +46,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      decodes back through the "cuda" engine and native; launch counts equal
      the batch counts), and the native codec's 64 KB stream of the payload
      decompressed through the "cuda" engine. Prints end-to-end, kernel-only,
-     plain-PyTorch and single-threaded host GB/s and the stream ratio.
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+     plain-PyTorch and single-threaded host GB/s and the stream ratio;
+ 11. sweep kernel vs plain: the Hopper sweep kernel and its plain PyTorch
+     version on the same CUDA tensors (128 blocks of the payload at bs 8192
+     with match_window 2048 and coarse_window 8192, sampled and granular, and
+     with 512/4096 granular; 128 blocks at bs 16384, 512/16384 granular; the
+     sweep's hand-built edge blocks; a full 1024-block batch of the main
+     config): every length and lag equal (exact);
+ 12. sweep main path: the phase-4 payload cut to 1100 blocks of 8 KB, with 8
+     random blocks spliced in, compressed through runtime.compress on the
+     "cuda" engine with the sweep (2048/8192, granular), checked as in phase 7
+     (the sweep and emit kernels' launch counts equal the batch count, and the
+     sorted matcher's stays 0; blocks of the payload's own random stretches
+     may be diverted too, each holding over 7.5 bits of entropy a byte).
+The line before the last is a JSON summary of the kernels, each with its
+time, its plain version's, its launches on the main paths and its bound (the
+larger of the bytes it must move over the card's memory rate and the integer
+operations its inputs need over the card's integer rate: for the sorted
+matcher one table step per position and candidate plus one word compare per
+4 bytes of each output length; for the sweep one table step per position
+plus the pairs whose first words match, with the exhaustive loop's pairs
+beside); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -60,9 +79,19 @@ import time
 
 BS = 32768
 WIDE_BS = 65536
+SWEEP_BS = 8192
 MAIN_BLOCKS = 1100
 SEED = 20261016
 RANDOM_BLOCKS = (3, 100, 333, 512, 777, 1023, 1024, 1090)  # spliced into the compress payloads
+# The sweep's main config: README's best bs-8192 point (-b 8192 --matcher
+# sweep --window 2048 --coarse-window 8192 --coarse-mode granular).
+SWEEP_MAIN = dict(matcher="sweep", match_window=2048, coarse_window=8192, coarse_mode="granular")
+
+# The card's rates for the bounds (H100 SXM): device memory 3.35 TB/s, and
+# int32 issue at 64 lanes per SM per clock on 132 SMs at the 1.98 GHz boost
+# clock (the codec's kernels are integer-only; no tensor-core rate applies).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -80,6 +109,74 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes the function must move (each input read once, each output written
+    once) over the memory rate and its integer operations over the int32
+    rate."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": nbytes, "ops": ops,
+    }
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
+
+    hopper_decode.LAUNCHES = hopper_match.LAUNCHES = hopper_sweep.LAUNCHES = hopper_encode.LAUNCHES = 0
+
+
+def sweep_pairs(blocks, lens, mlen, mlag, window: int, coarse_window: int, granular: bool) -> tuple[int, int]:
+    """(visited, first_word): the (position, lag) pairs the exhaustive sweep
+    visits on these inputs, and those of them whose first 4-byte words are
+    equal, the pairs that a per-block table of word occurrences would still
+    have to visit. At every position with 4 bytes left the sweep visits the
+    fine lags 1..min(window, p), then the coarse lags (every 8th in (window,
+    min(coarse, p)] sampled; every one at 8-aligned positions with 8 bytes
+    left, granular), in that order up to the first lag that gives the longest
+    bucket the position's remaining length allows (the exact early exit).
+    Computed from the inputs and the matcher's output."""
+    import torch
+
+    nb, bs = mlen.shape
+    p = torch.arange(bs, device=mlen.device, dtype=torch.int64)[None, :].expand(nb, bs)
+    room = lens[:, None].long() - p
+    maxk = (room >> 2).clamp(0, 16)
+    top = torch.zeros_like(maxk)
+    for words, length in ((1, 4), (2, 8), (4, 16), (8, 32), (16, 64)):
+        top = torch.where(maxk >= words, length, top)
+    fine = p.clamp(max=window)
+    coarse = coarse_window > window
+    reach = (p.clamp(max=coarse_window) - window).clamp(min=0) if coarse else torch.zeros_like(p)
+    in_granule = (p % 8 == 0) & (room >= 8)
+    if granular:
+        step, extra = 1, torch.where(in_granule, reach, 0)
+    else:
+        step, extra = 8, reach // 8
+    lag, length = mlag.long(), mlen.long()
+    done = (length > 0) & (length == top)
+    stop = torch.where(lag <= window, lag, fine + (lag - window) // step)
+    visited = int(torch.where(room >= 4, torch.where(done, stop, fine + extra), 0).sum())
+
+    data = torch.nn.functional.pad(torch.where(room > 0, blocks, 0).long(), (0, 3))
+    word = data[:, :bs] | data[:, 1 : bs + 1] << 8 | data[:, 2 : bs + 2] << 16 | data[:, 3 : bs + 3] << 24
+    last = torch.where(done, lag, bs)  # the last lag a position visits
+    fits = room >= 4
+    lags = [(d, fits) for d in range(1, min(window, bs - 1) + 1)]
+    if coarse:
+        top_lag = min(coarse_window, bs - 1)
+        if granular:
+            lags += [(d, in_granule) for d in range(window + 1, top_lag + 1)]
+        else:
+            lags += [(d, fits) for d in range(window + 8, top_lag + 1, 8)]
+    first_word = torch.zeros((), dtype=torch.int64, device=mlen.device)
+    for d, at in lags:
+        first_word += ((word[:, d:] == word[:, :-d]) & at[:, d:] & (last[:, d:] >= d)).sum()
+    return visited, int(first_word)
 
 
 def to_device(blocks, block_size, device):
@@ -136,31 +233,46 @@ def compare(name, args, block_size, expected=None, reps=5):
             if want is not None and (got != want or int(err_k[i])):
                 raise AssertionError(f"{name}: block {i} does not decode to the expected bytes")
     ms = cuda_ms(lambda: hopper_decode.decode_blocks(*args, block_size=block_size), reps)
+    # Payload bytes and both lengths read, every output row and verdict
+    # written; one operation per plaintext byte.
+    work = bound(
+        int(args[1].sum()) + 8 * nb + out_k.numel() + err_k.numel() * err_k.element_size(), int(args[2].sum())
+    )
     log(
         f"  {name}: {nb} blocks at bs {block_size}, {int(valid.sum())} valid, "
-        f"verdicts equal, max abs err {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms"
+        f"verdicts equal, max abs err {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})"
     )
-    return {"blocks": nb, "bytes": int(args[2].sum()), "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return {
+        "blocks": nb, "bytes": int(args[2].sum()), "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound": work,
+    }
 
 
 def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
-    """Match and emit kernels vs their plain versions on the same CUDA
-    tensors, at the given matcher knobs (default: the zero-flag config up to
-    32 KB); returns a stats dict with both kernels' times."""
+    """Match (or sweep) and emit kernels vs their plain versions on the same
+    CUDA tensors, at the given matcher knobs as ``encode_knobs`` gives them
+    (default: the zero-flag config up to 32 KB); returns a stats dict with
+    both kernels' times and bounds."""
     import torch
 
-    from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
+    from pim_compression_tpu_torch.ops import hopper_encode, hopper_match, hopper_sweep
     from pim_compression_tpu_torch.runtime import pipeline
 
-    knobs = knobs or {}
+    knobs = dict(knobs or {})
+    sweep = knobs.pop("matcher", "sorted") == "sweep"
+    match, match_plain = (
+        (hopper_sweep.sweep_match, hopper_sweep.sweep_match_torch) if sweep
+        else (hopper_match.match_blocks, hopper_match.match_blocks_torch)
+    )
     nb, bs = blocks_np.shape
     cap = pipeline.padded_capacity(bs)
     blocks = torch.from_numpy(blocks_np).to(device)
     lens = torch.from_numpy(lens_np).to(device)
-    mlen, mlag = hopper_match.match_blocks(blocks, lens, **knobs)
+    mlen, mlag = match(blocks, lens, **knobs)
     torch.cuda.synchronize()
     plain = []
-    match_plain_ms = cuda_ms(lambda: plain.append(hopper_match.match_blocks_torch(blocks, lens, **knobs)), 1)
+    match_plain_ms = cuda_ms(lambda: plain.append(match_plain(blocks, lens, **knobs)), 1)
     err = max(
         int((mlen.to(torch.int32) - plain[0][0].to(torch.int32)).abs().max()),
         int((mlag.to(torch.int32) - plain[0][1].to(torch.int32)).abs().max()),
@@ -176,18 +288,43 @@ def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
     emit_err = int((comp.to(torch.int16) - plain[0][0].to(torch.int16)).abs().max())
     if emit_err:
         raise AssertionError(f"{name}: compressed bytes differ (max abs err {emit_err})")
-    match_ms = cuda_ms(lambda: hopper_match.match_blocks(blocks, lens, **knobs), reps)
+    match_ms = cuda_ms(lambda: match(blocks, lens, **knobs), reps)
     emit_ms = cuda_ms(lambda: hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap), reps)
     ratio = float(sizes.sum()) / max(1, int(lens.sum()))
+    # Bytes: blocks and lengths read, lengths and lags written (the emit
+    # reads all of them and writes each padded row and size). Operations the
+    # function needs: for the sweep one table step per position and the
+    # pairs whose first words match (the exhaustive loop's pairs reported
+    # beside); for the sorted matcher one table step per position and
+    # candidate (each rung, and the prev-k steps of the ladder) and one word
+    # compare per 4 bytes of each match length; for the emit one parse step
+    # per position.
+    match_bytes = 4 * nb * bs + 4 * nb
+    extra = {}
+    if sweep:
+        visited, first_word = sweep_pairs(blocks, lens, mlen, mlag, **knobs)
+        match_ops = nb * bs + first_word
+        extra = {"visited_pairs": visited, "first_word_pairs": first_word,
+                 "visited_bound": bound(match_bytes, visited)}
+    else:
+        steps = len(knobs.get("rungs", (4, 16))) + (knobs.get("prev_k", 1) - 1 if knobs.get("sel_all") else 0)
+        match_ops = nb * bs * steps + int(((mlen.long() + 3) >> 2).sum())
+    match_bound = bound(match_bytes, match_ops)
+    emit_bound = bound(nb * (4 * bs + cap) + 8 * nb, int(lens.sum()))
+    label = "sweep" if sweep else "match"
+    pairs = (f"; {extra['visited_pairs']} pairs visited (bound {extra['visited_bound']['bound_ms']:.4f} ms), "
+             f"{extra['first_word_pairs']} with equal first words" if sweep else "")
     log(
         f"  {name}: {nb} blocks at bs {bs}, ratio {ratio:.4f}, lengths, lags, sizes and bytes equal; "
-        f"match kernel {match_ms:.4f} ms, plain {match_plain_ms:.1f} ms; "
-        f"emit kernel {emit_ms:.4f} ms, plain {emit_plain_ms:.1f} ms"
+        f"{label} kernel {match_ms:.4f} ms, plain {match_plain_ms:.1f} ms, bound {match_bound['bound_ms']:.4f} ms "
+        f"({match_bound['bound_by']}, {match_ops} ops{pairs}); emit kernel {emit_ms:.4f} ms, "
+        f"plain {emit_plain_ms:.1f} ms, bound {emit_bound['bound_ms']:.4f} ms ({emit_bound['bound_by']})"
     )
     return {
         "blocks": nb, "bytes": int(lens.sum()), "match_err": err, "emit_err": emit_err,
         "match_ms": match_ms, "match_plain_ms": match_plain_ms,
         "emit_ms": emit_ms, "emit_plain_ms": emit_plain_ms,
+        "match_bound": match_bound, "emit_bound": emit_bound, **extra,
     }
 
 
@@ -214,7 +351,7 @@ def decompress_main(stream: bytes, payload: bytes, bs: int, device, plain: dict)
     (plain time from ``plain``, a compare on a smaller batch)."""
     import torch
 
-    from pim_compression_tpu import native
+    from pim_compression_tpu_torch import native
     from pim_compression_tpu_torch import TorchCodecConfig, runtime
     from pim_compression_tpu_torch.ops import hopper_decode
     from pim_compression_tpu_torch.runtime import pipeline
@@ -225,7 +362,7 @@ def decompress_main(stream: bytes, payload: bytes, bs: int, device, plain: dict)
     batches = -(-nb // cfg.batch_blocks)
     log(f"  {nb} blocks at bs {bs}, {len(payload)} bytes")
     timer = runtime.PhaseTimer()
-    hopper_decode.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = runtime.decompress(stream, cfg, timer)
     first_s = time.perf_counter() - t0
@@ -244,8 +381,10 @@ def decompress_main(stream: bytes, payload: bytes, bs: int, device, plain: dict)
     args = tuple(torch.from_numpy(a[:n]).to(device) for a in (comp, clen, olen))
     kernel_ms = cuda_ms(lambda: hopper_decode.decode_blocks(*args, block_size=bs), 20)
     batch_bytes = int(olen[:n].sum())
+    work = bound(int(clen[:n].sum()) + 8 * n + n * bs + 4 * n, batch_bytes)  # as in compare()
     plain_gbs = plain["bytes"] / plain["plain_ms"] / 1e6
-    log(f"  kernel only: {kernel_ms:.3f} ms per {n}-block batch, {batch_bytes / kernel_ms / 1e6:.3f} GB/s")
+    log(f"  kernel only: {kernel_ms:.3f} ms per {n}-block batch, {batch_bytes / kernel_ms / 1e6:.3f} GB/s; "
+        f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
     log(f"  plain PyTorch: {plain['plain_ms']:.1f} ms per {plain['blocks']}-block batch, {plain_gbs:.4f} GB/s")
     t0 = time.perf_counter()
     host = native.decompress(stream, num_threads=1)
@@ -253,21 +392,27 @@ def decompress_main(stream: bytes, payload: bytes, bs: int, device, plain: dict)
     if host != payload:
         raise AssertionError("native host decode differs from the payload")
     log(f"  native host, 1 thread: {host_gbs:.3f} GB/s; end-to-end / host = {e2e_gbs / host_gbs:.3f}")
-    return {"launches": launches, "kernel_ms": kernel_ms, "e2e_gbs": e2e_gbs}
+    return {"launches": launches, "kernel_ms": kernel_ms, "e2e_gbs": e2e_gbs, "bound": work}
 
 
-def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None) -> dict:
+def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None, payload_raw: bool = False) -> dict:
     """The compress main path at one block size through the "cuda" engine,
     with RANDOM_BLOCKS replaced by seeded random bytes: launch counts, raw
     blocks, best of 3, the "torch" engine's stream on the GPU, round trips,
-    verify=True; kernel times from ``enc_batch`` (a compare on one batch)."""
+    verify=True; kernel times from ``enc_batch`` (a compare on one batch).
+    The triage must divert exactly RANDOM_BLOCKS, or with ``payload_raw``
+    also blocks of the payload's own random stretches, each of whose bytes
+    must carry over 7.5 bits of entropy (text blocks carry about 4.5)."""
     import numpy as np
 
-    from pim_compression_tpu import native
-    from pim_compression_tpu_torch import TorchCodecConfig, runtime
-    from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
+    from pim_compression_tpu_torch import TorchCodecConfig, native, runtime
+    from pim_compression_tpu_torch.ops import hopper_encode, hopper_match, hopper_sweep
+    from pim_compression_tpu_torch.runtime import pipeline
 
     knobs = knobs or {}
+    sweep = knobs.get("matcher") == "sweep"
+    match_mod, idle_mod = (hopper_sweep, hopper_match) if sweep else (hopper_match, hopper_sweep)
+    label = "sweep" if sweep else "match"
     rng = np.random.default_rng(SEED)
     spliced = bytearray(payload)
     for i in RANDOM_BLOCKS:
@@ -275,19 +420,34 @@ def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None) -> dict:
     spliced = bytes(spliced)
     cfg = TorchCodecConfig(engine="cuda", block_size=bs, **knobs)
     nblocks = -(-len(spliced) // bs)
-    batches = -(-(nblocks - len(RANDOM_BLOCKS)) // cfg.batch_blocks)
+    raw = np.flatnonzero(pipeline.triage_incompressible(*pipeline.blockize_plain(spliced, bs))).tolist()
+    extra = sorted(set(raw) - set(RANDOM_BLOCKS))
+    if len(raw) - len(extra) != len(RANDOM_BLOCKS):
+        raise AssertionError(f"compress bs {bs}: a spliced random block is not diverted")
+    if extra and not payload_raw:
+        raise AssertionError(f"compress bs {bs}: blocks {extra} diverted besides the spliced ones")
+    for i in extra:  # which ones follows the numpy that made the payload
+        freq = np.bincount(np.frombuffer(spliced, np.uint8, bs, i * bs), minlength=256) / bs
+        bits = float(-(freq[freq > 0] * np.log2(freq[freq > 0])).sum())
+        if bits < 7.5:
+            raise AssertionError(f"compress bs {bs}: block {i} is diverted, but carries {bits:.3f} bits a byte")
+    batches = -(-(nblocks - len(raw)) // cfg.batch_blocks)
     log(f"  {len(spliced)} bytes, {nblocks} blocks at bs {bs}, knobs {knobs or 'zero-flag'}")
     timer = runtime.PhaseTimer()
-    hopper_match.LAUNCHES = hopper_encode.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     stream = bytes(runtime.compress(spliced, cfg, timer))
     first_s = time.perf_counter() - t0
-    launches = (hopper_match.LAUNCHES, hopper_encode.LAUNCHES)
-    if launches != (batches, batches):
-        raise AssertionError(f"compress bs {bs}: launches (match, emit) {launches} for {batches} batches")
-    if timer.notes.get("raw_blocks") != len(RANDOM_BLOCKS):
-        raise AssertionError(f"compress bs {bs}: {timer.notes.get('raw_blocks')} raw blocks, expected {len(RANDOM_BLOCKS)}")
-    log(f"  {launches[0]} match and {launches[1]} emit launches for {batches} batches; notes {timer.notes}")
+    launches = (match_mod.LAUNCHES, hopper_encode.LAUNCHES)
+    if launches != (batches, batches) or idle_mod.LAUNCHES:
+        raise AssertionError(
+            f"compress bs {bs}: launches ({label}, emit) {launches} for {batches} batches, "
+            f"{idle_mod.LAUNCHES} of the other matcher"
+        )
+    if timer.notes.get("raw_blocks") != len(raw):
+        raise AssertionError(f"compress bs {bs}: {timer.notes.get('raw_blocks')} raw blocks, expected {len(raw)}")
+    log(f"  {launches[0]} {label} and {launches[1]} emit launches for {batches} batches; notes {timer.notes}; "
+        f"diverted: the {len(RANDOM_BLOCKS)} spliced blocks and payload blocks {extra}")
     log(f"  first run: {len(spliced) / first_s / 1e9:.3f} GB/s end to end; phases {timer.json()}")
     e2e_gbs, e2e_s, timer = best_of_3(lambda t: runtime.compress(spliced, cfg, t), len(spliced), stream, "compress")
     log(f"  best of 3: {e2e_gbs:.3f} GB/s end to end ({e2e_s * 1e3:.1f} ms); phases {timer.json()}")
@@ -310,11 +470,11 @@ def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None) -> dict:
     host_gbs = len(spliced) / (time.perf_counter() - t0) / 1e9
     kernel_ms = enc_batch["match_ms"] + enc_batch["emit_ms"]
     log(f"  stream ratio {len(stream) / len(spliced):.4f}; native compress ratio {len(host_stream) / len(spliced):.4f}")
-    log(f"  kernel only per {enc_batch['blocks']}-block batch: match {enc_batch['match_ms']:.3f} ms + emit "
+    log(f"  kernel only per {enc_batch['blocks']}-block batch: {label} {enc_batch['match_ms']:.3f} ms + emit "
         f"{enc_batch['emit_ms']:.3f} ms = {enc_batch['bytes'] / kernel_ms / 1e6:.3f} GB/s")
-    log(f"  plain PyTorch per batch: match {enc_batch['match_plain_ms']:.1f} ms, emit {enc_batch['emit_plain_ms']:.1f} ms")
+    log(f"  plain PyTorch per batch: {label} {enc_batch['match_plain_ms']:.1f} ms, emit {enc_batch['emit_plain_ms']:.1f} ms")
     log(f"  native host compress, 1 thread: {host_gbs:.3f} GB/s; end-to-end / host = {e2e_gbs / host_gbs:.3f}")
-    return {"launches": launches, "e2e_gbs": e2e_gbs, "notes": dict(timer.notes)}
+    return {"launches": launches, "e2e_gbs": e2e_gbs, "notes": dict(timer.notes), "ratio": len(stream) / len(spliced)}
 
 
 def main() -> int:
@@ -324,16 +484,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
-    from pim_compression_tpu import native
-    from pim_compression_tpu.format import oracle
     import numpy as np
 
-    from pim_compression_tpu.utils.config import preset_overrides
-    from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
-    from pim_compression_tpu_torch import TorchCodecConfig, runtime
-    from pim_compression_tpu_torch.ops import _build, hopper_encode
+    from pim_compression_tpu_torch import TorchCodecConfig, native, runtime
+    from pim_compression_tpu_torch.format import oracle
+    from pim_compression_tpu_torch.ops import _build, hopper_decode, hopper_encode, hopper_match, hopper_sweep
     from pim_compression_tpu_torch.runtime import pipeline
     from pim_compression_tpu_torch.utils import streams
+    from pim_compression_tpu_torch.utils.config import preset_overrides
+    from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 
     t_start = time.perf_counter()
     # 1. Device.
@@ -451,14 +610,19 @@ def main() -> int:
     # 8. Encode error path.
     log("phase 8: encode error path")
     refused = (
-        dict(block_size=WIDE_BS, matcher="sweep"), dict(sort_window=16384), dict(block_size=1000), dict(prev_k=2),
+        dict(block_size=WIDE_BS, matcher="sweep"), dict(block_size=16384 + 128, matcher="sweep"),
+        dict(SWEEP_MAIN, block_size=SWEEP_BS + 128), dict(sort_window=16384), dict(block_size=1000), dict(prev_k=2),
     )
+    mods = (hopper_decode, hopper_match, hopper_sweep, hopper_encode)
     for knobs in refused:
+        reset_counts()
         try:
             runtime.compress(payload[: 1 << 20], TorchCodecConfig(engine="cuda", **knobs))
         except SnappyError as e:
             if e.status != SnappyStatus.BAD_ARGUMENT:
                 raise AssertionError(f"{knobs}: refused with {e.status}, not BAD_ARGUMENT") from e
+            if any(m.LAUNCHES for m in mods):
+                raise AssertionError(f"{knobs}: refused after launching a kernel") from e
             log(f"  {knobs} refused: {e}")
         else:
             raise AssertionError(f"the cuda engine compressed with {knobs}")
@@ -490,24 +654,57 @@ def main() -> int:
     if wide_comp["notes"].get("wide_select") != "sel_all sel_cap=16":
         raise AssertionError(f"compress bs {WIDE_BS}: notes {wide_comp['notes']}")
     wide_dec = decompress_main(wide_stream, wide_payload, WIDE_BS, device, wide_stats)
+
+    # 11. The sweep kernel against its plain version.
+    log(f"phase 11: sweep kernel vs plain PyTorch at bs {SWEEP_BS} and 16384")
+    sweep_payload = payload[: MAIN_BLOCKS * SWEEP_BS - 1000]
+    sweep_full = np.frombuffer(sweep_payload[: 1024 * SWEEP_BS], np.uint8).reshape(-1, SWEEP_BS).copy()
+    sweep_lens = np.full(len(sweep_full), SWEEP_BS, np.int32)
+    big_full = np.frombuffer(payload[: 128 * 16384], np.uint8).reshape(128, 16384).copy()
+    sweep_cases = [
+        ("w2048-c8192-sampled", sweep_full[:128], sweep_lens[:128], dict(SWEEP_MAIN, coarse_mode="sampled")),
+        ("w2048-c8192-granular", sweep_full[:128], sweep_lens[:128], SWEEP_MAIN),
+        ("w512-c4096-granular", sweep_full[:128], sweep_lens[:128], dict(SWEEP_MAIN, match_window=512, coarse_window=4096)),
+        ("bs-16384-w512-c16384-granular", big_full, np.full(128, 16384, np.int32),
+         dict(SWEEP_MAIN, match_window=512, coarse_window=16384)),
+    ]
+    for mode in ("sampled", "granular"):
+        edge = streams.sweep_edge_blocks(SWEEP_BS, 2048, SEED)
+        sweep_cases.append((f"edge-blocks-{mode}", *edge, dict(SWEEP_MAIN, coarse_mode=mode)))
+    sweep_stats = []
+    for name, blocks, lens, knobs in sweep_cases:
+        knobs = hopper_encode.encode_knobs(TorchCodecConfig(block_size=blocks.shape[1], **knobs))
+        sweep_stats.append(compare_encode(name, blocks, lens, device, knobs))
+    sweep_knobs = hopper_encode.encode_knobs(TorchCodecConfig(block_size=SWEEP_BS, **SWEEP_MAIN))
+    sweep_stats.append(compare_encode(f"main-batch-{n}", sweep_full, sweep_lens, device, sweep_knobs, reps=10))
+    sweep_batch = sweep_stats[-1]
+
+    # 12. The sweep main path.
+    log(f"phase 12: sweep compress main path at bs {SWEEP_BS}")
+    sweep_comp = compress_main(sweep_payload, SWEEP_BS, sweep_batch, SWEEP_MAIN, payload_raw=True)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    def entry(name, source, replaces, launches, max_err, ms, plain_ms):
+    def entry(name, source, replaces, launches, max_err, ms, plain_ms, work, **extra):
         return {
             "name": name, "route": "cuda", "source": f"pim_compression_tpu_torch/csrc/{source}",
             "replaces": ", ".join(replaces), "launches": sum(launches.values()),
             "launches_by_block_size": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes any of these functions
+            **extra,
         }
 
-    # Times: the 64 KB shapes (decode: the 128-block comparison batch; match
-    # and emit: one 1024-block batch at the zero-flag config).
+    # Times and bounds: the 64 KB shapes for decode (the 188-block comparison
+    # batch), match and emit (one 1024-block batch at the zero-flag config);
+    # the sweep's main config for the sweep (one 1024-block batch at 8 KB).
+    # Launches: the main paths' runs (phases 4, 7, 10 and 12).
     print(json.dumps({"kernels": [
         entry(
             "decode_blocks", "decode.cu",
             ["pim_compression_tpu/ops/pallas_decode.py:87", "pim_compression_tpu/ops/pallas_decode.py:263",
              "pim_compression_tpu/ops/pallas_decode.py:620"],
             {str(BS): dec["launches"], str(WIDE_BS): wide_dec["launches"]},
-            max(st["max_abs_err"] for st in stats), wide_stats["ms"], wide_stats["plain_ms"],
+            max(st["max_abs_err"] for st in stats), wide_stats["ms"], wide_stats["plain_ms"], wide_stats["bound"],
         ),
         entry(
             "match_blocks", "match.cu",
@@ -515,12 +712,24 @@ def main() -> int:
              "pim_compression_tpu/ops/pallas_match.py:679", "pim_compression_tpu/ops/pallas_match.py:821"],
             {str(BS): comp["launches"][0], str(WIDE_BS): wide_comp["launches"][0]},
             max(st["match_err"] for st in enc_stats), wide_enc_batch["match_ms"], wide_enc_batch["match_plain_ms"],
+            wide_enc_batch["match_bound"],
         ),
         entry(
             "emit_blocks", "emit.cu",
             ["pim_compression_tpu/ops/pallas_encode.py:559", "pim_compression_tpu/ops/pallas_encode.py:863"],
-            {str(BS): comp["launches"][1], str(WIDE_BS): wide_comp["launches"][1]},
-            max(st["emit_err"] for st in enc_stats), wide_enc_batch["emit_ms"], wide_enc_batch["emit_plain_ms"],
+            {str(BS): comp["launches"][1], str(WIDE_BS): wide_comp["launches"][1],
+             str(SWEEP_BS): sweep_comp["launches"][1]},
+            max(st["emit_err"] for st in enc_stats + sweep_stats), wide_enc_batch["emit_ms"],
+            wide_enc_batch["emit_plain_ms"], wide_enc_batch["emit_bound"],
+        ),
+        entry(
+            "sweep_blocks", "sweep.cu",
+            ["pim_compression_tpu/ops/pallas_encode.py:101", "pim_compression_tpu/ops/pallas_encode.py:175"],
+            {str(SWEEP_BS): sweep_comp["launches"][0]},
+            max(st["match_err"] for st in sweep_stats), sweep_batch["match_ms"], sweep_batch["match_plain_ms"],
+            sweep_batch["match_bound"], visited_pairs=sweep_batch["visited_pairs"],
+            first_word_pairs=sweep_batch["first_word_pairs"],
+            visited_bound_ms=sweep_batch["visited_bound"]["bound_ms"],
         ),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -109,6 +109,12 @@ def load() -> ctypes.CDLL:
             i32, i32,  # prev_k, sel_cap
             i32, ptr,  # device, stream
         ]
+        lib.pim_sweep_blocks.restype = i32
+        lib.pim_sweep_blocks.argtypes = [
+            ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag
+            i32, i32, i32, i32, i32,  # num_blocks, block_size, window, coarse, granular
+            i32, ptr,  # device, stream
+        ]
         lib.pim_emit_blocks.restype = i32
         lib.pim_emit_blocks.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, comp, sizes

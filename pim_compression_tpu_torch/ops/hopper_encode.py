@@ -1,13 +1,14 @@
 """Block encode: the Hopper emit kernel's wrapper, its plain PyTorch version,
-and ``encode_blocks``, which chains the match and emit kernels.
+and ``encode_blocks``, which chains a match kernel and the emit kernel.
 
 ``encode_blocks`` is the port of ``pim_compression_tpu.ops.pallas_encode.
 encode_blocks_pallas`` with the sorted matcher on its rung-pick and
-``sel_all`` paths (block_size <= 65536). For CUDA tensors it launches
-``csrc/match.cu`` (``hopper_match.match_blocks``) and then ``csrc/emit.cu``
-(``emit_blocks``), which replaces the TPU kernels ``_emit_kernel`` and
-``_emit_kernel_wide`` and the lazy-1 glue before them. CPU tensors go to the
-plain versions.
+``sel_all`` paths (block_size <= 65536) and with the sweep matcher, sampled
+or granular (block_size <= 16384). For CUDA tensors it launches
+``csrc/match.cu`` (``hopper_match.match_blocks``) or ``csrc/sweep.cu``
+(``hopper_sweep.sweep_match``) and then ``csrc/emit.cu`` (``emit_blocks``),
+which replaces the TPU kernels ``_emit_kernel`` and ``_emit_kernel_wide``
+and the lazy-1 glue before them. CPU tensors go to the plain versions.
 
 ``emit_blocks_torch`` transcribes the NumPy spec the TPU kernel is held to
 (``pim_compression_tpu.ops.lane_model_encode``: ``lazy_defer``,
@@ -21,8 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
-from pim_compression_tpu_torch.ops import _build, hopper_match
+from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
+from pim_compression_tpu_torch.ops import _build, hopper_match, hopper_sweep
 
 # The port's encode envelope: the reference's Pallas envelope (api.py:35,
 # :38-70).
@@ -38,16 +39,22 @@ LAUNCHES = 0
 
 
 def encode_knobs(config, notes: dict | None = None) -> dict:
-    """The matcher knobs of a ``CodecConfig`` on the ported path.
+    """The matcher knobs of a ``TorchCodecConfig`` on the ported path.
 
-    The rung pick runs where ``config.effective_rung_pick`` holds, the
-    ``sel_all`` select ladder where ``sel_all`` and ``sel_cap`` are set.
-    Above 32768 the reference's rule applies (``runtime/api.py:372-383``):
-    a config without both becomes ``sel_all`` with ``sel_cap or 16``, and
-    ``notes["wide_select"]`` says so. Raises ``SnappyError(BAD_ARGUMENT)``
-    for a block size outside the envelope (256 <= bs <= 65536, bs % 128 ==
-    0) or a knob off those paths, naming the ROADMAP item that ports it.
-    Nothing else reroutes.
+    The sweep matcher (``matcher="sweep"``) runs at block sizes up to 16384
+    with ``match_window``, ``coarse_window`` and ``coarse_mode``, normalised
+    by ``hopper_sweep.sweep_knobs``; it ignores the sorted matcher's knobs,
+    as the reference does. For the sorted matcher, the rung pick runs where
+    ``config.effective_rung_pick`` holds, the ``sel_all`` select ladder
+    where ``sel_all`` and ``sel_cap`` are set. Above 32768 the reference's
+    rule applies (``runtime/api.py:372-383``): a config without both
+    becomes ``sel_all`` with ``sel_cap or 16``, and ``notes["wide_select"]``
+    says so. Raises ``SnappyError(BAD_ARGUMENT)`` for a block size outside
+    the envelope (256 <= bs <= 65536, bs % 128 == 0), for the sweep above
+    16384 (where the reference falls back to its unported ``xla`` engine)
+    or granular at a block size that is not a multiple of 256, and for a
+    knob off those paths, naming the ROADMAP item that ports it. Nothing
+    reroutes.
     """
     bs = config.block_size
     sel_cap, sel_all = config.sel_cap, config.sel_all
@@ -56,8 +63,16 @@ def encode_knobs(config, notes: dict | None = None) -> dict:
         sel_cap, sel_all = sel_cap or WIDE_SEL_CAP, True
     if bs < MIN_BLOCK_SIZE or bs > MAX_BLOCK_SIZE or bs % 128:
         gap = f"block_size {bs}: the encoder takes multiples of 128 in [{MIN_BLOCK_SIZE}, {MAX_BLOCK_SIZE}]"
-    elif config.matcher != "sorted":
-        gap = f"matcher {config.matcher!r} (the sweep matcher, ROADMAP A item 10)"
+    elif config.matcher == "sweep":
+        try:
+            return dict(matcher="sweep", **hopper_sweep.sweep_knobs(
+                bs, config.match_window, config.coarse_window, config.coarse_mode == "granular",
+            ))
+        except ValueError as e:
+            gap = f"matcher 'sweep' at block_size {bs}: {e} (the sweep envelope"
+            if bs > hopper_sweep.MAX_SWEEP_BLOCK:
+                gap += "; the reference falls back to its xla engine there, not ported, ROADMAP A item 6"
+            gap += ")"
     elif config.stride2_min or config.sort_window or (
         config.rung_strides and any(s != 1 for s in config.rung_strides)
     ):
@@ -233,25 +248,29 @@ def _round16(n: int) -> int:
 
 
 def encode_blocks_torch(
-    blocks: torch.Tensor, lens: torch.Tensor, *, cap: int, **knobs
+    blocks: torch.Tensor, lens: torch.Tensor, *, cap: int, matcher: str = "sorted", **knobs
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain versions of both stages, on the tensors' device; ``knobs``
-    as ``hopper_match.match_blocks_torch`` takes them."""
-    mlen, mlag = hopper_match.match_blocks_torch(blocks, lens, **knobs)
+    as ``hopper_match.match_blocks_torch`` takes them, or with
+    ``matcher="sweep"`` as ``hopper_sweep.sweep_match_torch`` does."""
+    match = hopper_sweep.sweep_match_torch if matcher == "sweep" else hopper_match.match_blocks_torch
+    mlen, mlag = match(blocks, lens, **knobs)
     return emit_blocks_torch(blocks, lens, mlen, mlag, cap)
 
 
 def encode_blocks(
-    blocks: torch.Tensor, lens: torch.Tensor, *, cap: int, **knobs
+    blocks: torch.Tensor, lens: torch.Tensor, *, cap: int, matcher: str = "sorted", **knobs
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Compress a batch of blocks: match, then emit.
 
     blocks uint8[nb, bs] (bs <= 65536, bytes past ``lens`` read as zero),
-    lens int32[nb]; ``knobs`` as ``hopper_match.match_blocks`` takes them.
-    Returns (comp uint8[nb, cap], sizes int32[nb]), the bytes
-    ``lane_model_encode.encode_lanes(matcher="sorted", ...)`` emits with
-    ``rung_pick=True`` or ``sel_all=True``. CUDA tensors run the two
-    kernels, CPU tensors the two plain versions.
+    lens int32[nb]; ``knobs`` as ``hopper_match.match_blocks`` takes them,
+    or with ``matcher="sweep"`` (bs <= 16384) as ``hopper_sweep.sweep_match``
+    does. Returns (comp uint8[nb, cap], sizes int32[nb]), the bytes
+    ``lane_model_encode.encode_lanes`` emits with that matcher (lazy-1
+    included). CUDA tensors run the two kernels, CPU tensors the two plain
+    versions.
     """
-    mlen, mlag = hopper_match.match_blocks(blocks, lens, **knobs)
+    match = hopper_sweep.sweep_match if matcher == "sweep" else hopper_match.match_blocks
+    mlen, mlag = match(blocks, lens, **knobs)
     return emit_blocks(blocks, lens, mlen, mlag, cap)

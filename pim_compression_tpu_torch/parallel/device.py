@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
+from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 
 
 def resolve_device(engine: str, device=None) -> torch.device:

@@ -1,10 +1,10 @@
 """Public codec API of the port: ``compress`` / ``decompress`` with engine dispatch.
 
 Engines:
-- ``oracle``: the pure-Python arbiter (passes through to the reference).
-- ``native``: the C++ threaded host codec (passes through).
-- ``cuda``: the hand-written Hopper kernels (match, emit, decode) on one
-  CUDA device.
+- ``oracle``: the pure-Python arbiter (the port's copy of the reference's).
+- ``native``: the C++ threaded host codec (the port's copy, passes through).
+- ``cuda``: the hand-written Hopper kernels (match or sweep, emit, decode)
+  on one CUDA device.
 - ``torch``: their plain PyTorch versions, on the CPU or a GPU.
 
 Ported from ``pim_compression_tpu.runtime.api``. The device engines emit
@@ -16,9 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pim_compression_tpu import native
-from pim_compression_tpu.format import oracle
-from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
+from pim_compression_tpu_torch import native
+from pim_compression_tpu_torch.format import oracle
+from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 from pim_compression_tpu_torch.ops import _build, hopper_decode, hopper_encode
 from pim_compression_tpu_torch.parallel import resolve_device
 from pim_compression_tpu_torch.runtime import pipeline
@@ -118,8 +118,11 @@ def compress(
     match + emit -> d2h, synchronously. The sorted matcher's rung pick and
     its ``sel_all`` select ladder at 256 <= block_size <= 65536 (a multiple
     of 128) are ported, with the reference's switch to the ladder above
-    32768 (``timer.notes["wide_select"]``); any other size or knob raises
-    ``SnappyError(BAD_ARGUMENT)`` (``hopper_encode.encode_knobs``). With
+    32768 (``timer.notes["wide_select"]``), and so is the sweep matcher
+    (``matcher="sweep"``: ``match_window``, ``coarse_window``, sampled or
+    granular ``coarse_mode``) at block_size <= 16384 (granular at multiples
+    of 256); any other size or knob raises ``SnappyError(BAD_ARGUMENT)``
+    (``hopper_encode.encode_knobs``) and nothing falls back. With
     ``config.verify``, each batch is decoded again on its device and
     compared with its input blocks; a mismatch raises ``SnappyError``.
     """

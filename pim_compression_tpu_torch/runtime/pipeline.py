@@ -22,11 +22,11 @@ import os
 
 import numpy as np
 
-from pim_compression_tpu import native
-from pim_compression_tpu.format import constants as C
-from pim_compression_tpu.format import oracle
-from pim_compression_tpu.format.varint import encode_varint32
-from pim_compression_tpu.utils.errors import SnappyError, SnappyStatus
+from pim_compression_tpu_torch import native
+from pim_compression_tpu_torch.format import constants as C
+from pim_compression_tpu_torch.format import oracle
+from pim_compression_tpu_torch.format.varint import encode_varint32
+from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 
 
 def padded_capacity(block_size: int) -> int:

@@ -1,1 +1,1 @@
-"""Port utilities: the codec config and seeded test inputs. Errors come from the reference."""
+"""Port utilities: the codec config, typed errors and seeded test inputs."""

@@ -11,8 +11,8 @@ import random
 
 import numpy as np
 
-from pim_compression_tpu.format import constants as C
-from pim_compression_tpu.format.varint import encode_varint32
+from pim_compression_tpu_torch.format import constants as C
+from pim_compression_tpu_torch.format.varint import encode_varint32
 
 
 def text_payload(n: int, seed: int = 0) -> bytes:
@@ -103,6 +103,35 @@ def hand_plain_blocks(block_size: int, seed: int = 0, far_lag: int = 8193) -> tu
     for _ in range(4):
         rows.append(rand())
         lens.append(block_size)
+    return np.stack(rows), np.array(lens, dtype=np.int32)
+
+
+def sweep_edge_blocks(block_size: int, window: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Edge cases for the sweep matcher, as ``plain_blocks`` returns them:
+    random blocks with a 100-byte repeat at lag 1 (a byte run), at lag
+    ``window`` (the fine sweep's last lag), at ``window + 1`` (the first lag
+    only a coarse search reaches) and at 1237 (unaligned, not a multiple of
+    8), each where it fits; a block whose last 70 bytes repeat at lag 40 up
+    to its length (a run cut at ``len``); and a block 3 bytes short of
+    ``block_size`` with its copy running into the cut."""
+    rng = np.random.default_rng(seed)
+    rows, lens = [], []
+    for lag in (1, window, window + 1, 1237):
+        if 0 < lag and lag + 120 <= block_size:
+            row = rng.integers(0, 256, block_size, dtype=np.uint8)
+            start = min(lag + 17, block_size - 100)
+            for p in range(start, start + 100):  # overlapping copies allowed
+                row[p] = row[p - lag]
+            rows.append(row)
+            lens.append(block_size)
+    for short in (0, 3):
+        row = rng.integers(0, 256, block_size, dtype=np.uint8)
+        n = block_size - short
+        for p in range(n - 70, n):
+            row[p] = row[p - 40]
+        row[n:] = 0
+        rows.append(row)
+        lens.append(n)
     return np.stack(rows), np.array(lens, dtype=np.int32)
 
 

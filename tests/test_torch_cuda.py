@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (decode, match, emit), on a GPU.
+"""The port's CUDA kernels (decode, match, sweep, emit), on a GPU.
 
 Every test here needs a CUDA device and nvcc, carries the ``cuda`` marker
 and skips without a device. The file imports no JAX, so it also runs where
@@ -23,7 +23,7 @@ import torch
 from pim_compression_tpu import native
 from pim_compression_tpu.format import oracle
 from pim_compression_tpu_torch import TorchCodecConfig, runtime
-from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match
+from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
 
@@ -187,7 +187,7 @@ def test_cuda_engine_compress_round_trip(cuda_device):
 
 @pytest.mark.parametrize("preset", [None, "speed"])
 def test_cuda_engine_compress_round_trip_64k(cuda_device, preset):
-    from pim_compression_tpu.utils.config import preset_overrides
+    from pim_compression_tpu_torch.utils.config import preset_overrides
 
     rng = np.random.default_rng(9)
     text = streams.text_payload(4 * 65536, 10)
@@ -208,3 +208,66 @@ def test_cuda_engine_compress_round_trip_64k(cuda_device, preset):
     assert bytes(stream) == bytes(plain)
     assert bytes(runtime.decompress(bytes(stream), TorchCodecConfig(engine="cuda"))) == data
     assert oracle.decompress(bytes(stream)) == data
+
+
+SWEEP = [
+    (8192, dict(window=2048, coarse_window=8192, granular=True)),
+    (8192, dict(window=2048, coarse_window=8192, granular=False)),
+    (8192, dict(window=512, coarse_window=4096, granular=True)),
+    (16384, dict(window=512, coarse_window=16384, granular=True)),
+    (1024, dict(window=100, coarse_window=1000, granular=False)),
+    (384, dict(window=64, coarse_window=0, granular=False)),
+]
+
+
+@pytest.mark.parametrize(
+    "block_size, knobs", SWEEP,
+    ids=["8192-w2048-granular", "8192-w2048-sampled", "8192-w512-granular", "16384-granular", "1024-sampled", "384-fine"],
+)
+def test_cuda_sweep_kernel_matches_plain_version(cuda_device, block_size, knobs):
+    knobs = hopper_sweep.sweep_knobs(block_size, **knobs)  # as encode_knobs gives them
+    n = 200 if block_size <= 1024 else 24
+    rb, rl = streams.plain_blocks(block_size, n, block_size + 1)
+    eb, el = streams.sweep_edge_blocks(block_size, knobs["window"], 2)
+    text = np.frombuffer(streams.text_payload(8 * block_size, 6), np.uint8).reshape(8, block_size)
+    blocks = torch.from_numpy(np.concatenate([rb, eb, text])).to(cuda_device)
+    lens = torch.from_numpy(np.concatenate([rl, el, np.full(8, block_size, np.int32)])).to(cuda_device)
+    launches = hopper_sweep.LAUNCHES
+    mlen, mlag = hopper_sweep.sweep_match(blocks, lens, **knobs)
+    torch.cuda.synchronize()
+    assert hopper_sweep.LAUNCHES == launches + 1
+    want_len, want_lag = hopper_sweep.sweep_match_torch(blocks, lens, **knobs)
+    assert torch.equal(mlen, want_len) and torch.equal(mlag, want_lag)
+    assert int(mlen.max()) == 64
+
+
+@pytest.mark.parametrize("mode", ["sampled", "granular"])
+def test_cuda_engine_sweep_round_trip(cuda_device, mode):
+    rng = np.random.default_rng(12)
+    text = streams.text_payload(5 * 8192, 13)
+    data = text[:8192] + rng.integers(0, 256, 8192, dtype=np.uint8).tobytes() + text[8192:] + b"tail"
+    knobs = dict(block_size=8192, matcher="sweep", match_window=2048, coarse_window=8192, coarse_mode=mode)
+    cfg = TorchCodecConfig(engine="cuda", batch_blocks=2, verify=True, **knobs)
+    launches = hopper_sweep.LAUNCHES, hopper_encode.LAUNCHES, hopper_match.LAUNCHES
+    timer = runtime.PhaseTimer()
+    stream = runtime.compress(data, cfg, timer)
+    assert timer.notes["raw_blocks"] == 1
+    # 6 blocks on the device in batches of 2; the sorted matcher never runs.
+    assert (hopper_sweep.LAUNCHES, hopper_encode.LAUNCHES, hopper_match.LAUNCHES) == (
+        launches[0] + 3, launches[1] + 3, launches[2]
+    )
+    plain = runtime.compress(data, TorchCodecConfig(engine="torch", device="cuda:0", **knobs))
+    assert bytes(stream) == bytes(plain)
+    assert bytes(runtime.decompress(bytes(stream), TorchCodecConfig(engine="cuda"))) == data
+    assert oracle.decompress(bytes(stream)) == data
+
+
+def test_cuda_sweep_wrapper_rejects_bad_tensors(cuda_device):
+    blocks = torch.zeros((4, 512), dtype=torch.uint8, device=cuda_device)
+    lens = torch.full((4,), 512, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # not contiguous
+        hopper_sweep.sweep_match(blocks[:, ::2], lens)
+    with pytest.raises(ValueError):  # mixed devices
+        hopper_sweep.sweep_match(blocks, lens.cpu())
+    with pytest.raises(ValueError):  # past the sweep envelope
+        hopper_sweep.sweep_match(torch.zeros((1, 32768), dtype=torch.uint8, device=cuda_device), lens[:1])
