@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's decompress and compress main paths on one GPU,
-at 32 KB and at 64 KB blocks.
+at 32 KB and at 64 KB blocks, through the runtime and through the CLI.
 
     python3 chip_smoke.py
 
@@ -34,9 +34,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      count. Prints end-to-end, kernel-only, plain-PyTorch and single-threaded
      host GB/s and the stream ratio beside the native codec's;
   8. encode error path: the sweep matcher above 16384 and granular at a block
-     size that is not a multiple of 256, a sort mode, a block size that is not
-     a multiple of 128 and the ladder without sel_all are refused with
-     BAD_ARGUMENT, and no kernel is launched;
+     size that is not a multiple of 256, a block size that is not a multiple
+     of 128 and a sort window that does not divide the padded sort size are
+     refused with BAD_ARGUMENT, and no kernel is launched;
   9. 64 KB kernels vs plain: the match and emit kernels on 128 blocks of the
      64 KB payload at the zero-flag config (switched to the sel_all ladder)
      and at each preset's 64 KB row: every length, lag, size and byte equal;
@@ -58,13 +58,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      "cuda" engine with the sweep (2048/8192, granular), checked as in phase 7
      (the sweep and emit kernels' launch counts equal the batch count, and the
      sorted matcher's stays 0; blocks of the payload's own random stretches
-     may be diverted too, each holding over 7.5 bits of entropy a byte).
+     may be diverted too, each holding over 7.5 bits of entropy a byte);
+ 13. sort-mode kernels vs plain: the match and emit kernels on 128 blocks of
+     the payload plus the hand-built blocks for each of the sorted matcher's
+     sort-mode and ladder configs SORT_MODES ((a)-(d) at 32 KB, (e) at 64 KB):
+     every length, lag, size and byte equal; (a) also on a full 1024-block
+     batch, timed;
+ 14. the CLI at full width: `python -m pim_compression_tpu_torch -c -b 32768
+     --json` on the phase-7 payload, with no matcher flags (its stream must
+     equal phase 7's) and with config (a)'s flags (equal to the "torch"
+     engine's stream on the GPU), and `-c -b 65536` with config (e)'s flags
+     on the 64 KB payload (equal to runtime.compress's); each stream
+     decompresses back through the CLI and the native codec, the JSON line
+     names the cuda engine, and the kernels' launch counts, read in each CLI
+     process after its run, equal its batch counts.
 The line before the last is a JSON summary of the kernels, each with its
 time, its plain version's, its launches on the main paths and its bound (the
 larger of the bytes it must move over the card's memory rate and the integer
 operations its inputs need over the card's integer rate: for the sorted
-matcher one table step per position and candidate plus one word compare per
-4 bytes of each output length; for the sweep one table step per position
+matcher one table step per sorted row (ceil(bs / stride) of a rung) and
+candidate (prev_k on the 4-byte rung in the ladder modes) plus one word
+compare per 4 bytes of each output length; for the sweep one table step per position
 plus the pairs whose first words match, with the exhaustive loop's pairs
 beside); the last line is {"ok": true, "device": {...}}.
 """
@@ -72,9 +86,11 @@ beside); the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 BS = 32768
@@ -86,6 +102,35 @@ RANDOM_BLOCKS = (3, 100, 333, 512, 777, 1023, 1024, 1090)  # spliced into the co
 # The sweep's main config: README's best bs-8192 point (-b 8192 --matcher
 # sweep --window 2048 --coarse-window 8192 --coarse-mode granular).
 SWEEP_MAIN = dict(matcher="sweep", match_window=2048, coarse_window=8192, coarse_mode="granular")
+# The sorted matcher's sort modes and ladders, as config fields with their
+# CLI flags: (a) the capped per-rung ladder with half-density long rungs,
+# (b) the uncapped ladder (the CLI's "ratio champion"), (c) the windowed rung
+# pick, (d) sel_all with the 32-byte rung at 1/8 density (config.py's
+# example), (e) at 64 KB (switched to sel_all) a stride-2 rung's 17-bit keys
+# and the window.
+SORT_MODES = {
+    "a": (BS, dict(rungs=None, prev_k=4, sel_cap=16, stride2_min=16),
+          ["--rungs", "full", "--prev-k", "4", "--sel-cap", "16", "--stride2-min", "16"]),
+    "b": (BS, dict(rungs=(4, 16), rung_pick=False, prev_k=6), ["--no-rung-pick", "--prev-k", "6"]),
+    "c": (BS, dict(rungs=(4, 16), sort_window=8192), ["--sort-window", "8192"]),
+    "d": (BS, dict(rungs=(4, 32), prev_k=2, sel_cap=16, sel_all=True, rung_strides=(1, 8)),
+          ["--rungs", "4,32", "--prev-k", "2", "--sel-cap", "16", "--sel-all", "--rung-strides", "1,8"]),
+    "e": (WIDE_BS, dict(rungs=(4, 32), rung_strides=(1, 2), sort_window=16384),
+          ["--rungs", "4,32", "--rung-strides", "1,2", "--sort-window", "16384"]),
+}
+# Runs the CLI as `python -m pim_compression_tpu_torch` does, then prints
+# the kernels' launch counts of that process as its last line.
+CLI_RUN = (
+    "import json, runpy, sys\n"
+    "from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep\n"
+    "sys.argv[0] = 'pim_compression_tpu_torch'\n"
+    "try:\n"
+    "    runpy.run_module('pim_compression_tpu_torch', run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code\n"
+    "print(json.dumps({'rc': rc, 'decode': hopper_decode.LAUNCHES, 'match': hopper_match.LAUNCHES,\n"
+    "                  'sweep': hopper_sweep.LAUNCHES, 'emit': hopper_encode.LAUNCHES}))\n"
+)
 
 # The card's rates for the bounds (H100 SXM): device memory 3.35 TB/s, and
 # int32 issue at 64 lanes per SM per clock on 132 SMs at the 1.98 GHz boost
@@ -295,10 +340,10 @@ def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
     # reads all of them and writes each padded row and size). Operations the
     # function needs: for the sweep one table step per position and the
     # pairs whose first words match (the exhaustive loop's pairs reported
-    # beside); for the sorted matcher one table step per position and
-    # candidate (each rung, and the prev-k steps of the ladder) and one word
-    # compare per 4 bytes of each match length; for the emit one parse step
-    # per position.
+    # beside); for the sorted matcher one table step per sorted row
+    # (ceil(bs / stride) of a rung) and candidate (prev_k on the 4-byte rung
+    # in the ladder modes) and one word compare per 4 bytes of each match
+    # length; for the emit one parse step per position.
     match_bytes = 4 * nb * bs + 4 * nb
     extra = {}
     if sweep:
@@ -307,8 +352,11 @@ def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
         extra = {"visited_pairs": visited, "first_word_pairs": first_word,
                  "visited_bound": bound(match_bytes, visited)}
     else:
-        steps = len(knobs.get("rungs", (4, 16))) + (knobs.get("prev_k", 1) - 1 if knobs.get("sel_all") else 0)
-        match_ops = nb * bs * steps + int(((mlen.long() + 3) >> 2).sum())
+        rungs = knobs.get("rungs", (4, 16))
+        strides = knobs.get("strides") or (1,) * len(rungs)
+        ladder = knobs.get("sel_all") or not knobs.get("rung_pick", True)
+        steps = sum(-(-bs // s) * (knobs.get("prev_k", 1) if r == 4 and ladder else 1) for r, s in zip(rungs, strides))
+        match_ops = nb * steps + int(((mlen.long() + 3) >> 2).sum())
     match_bound = bound(match_bytes, match_ops)
     emit_bound = bound(nb * (4 * bs + cap) + 8 * nb, int(lens.sum()))
     label = "sweep" if sweep else "match"
@@ -321,7 +369,7 @@ def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
         f"plain {emit_plain_ms:.1f} ms, bound {emit_bound['bound_ms']:.4f} ms ({emit_bound['bound_by']})"
     )
     return {
-        "blocks": nb, "bytes": int(lens.sum()), "match_err": err, "emit_err": emit_err,
+        "blocks": nb, "bytes": int(lens.sum()), "match_err": err, "emit_err": emit_err, "ratio": ratio,
         "match_ms": match_ms, "match_plain_ms": match_plain_ms,
         "emit_ms": emit_ms, "emit_plain_ms": emit_plain_ms,
         "match_bound": match_bound, "emit_bound": emit_bound, **extra,
@@ -395,6 +443,17 @@ def decompress_main(stream: bytes, payload: bytes, bs: int, device, plain: dict)
     return {"launches": launches, "kernel_ms": kernel_ms, "e2e_gbs": e2e_gbs, "bound": work}
 
 
+def splice(payload: bytes, bs: int) -> bytes:
+    """The payload with its RANDOM_BLOCKS replaced by seeded random bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    spliced = bytearray(payload)
+    for i in RANDOM_BLOCKS:
+        spliced[i * bs : (i + 1) * bs] = rng.integers(0, 256, bs, dtype=np.uint8).tobytes()
+    return bytes(spliced)
+
+
 def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None, payload_raw: bool = False) -> dict:
     """The compress main path at one block size through the "cuda" engine,
     with RANDOM_BLOCKS replaced by seeded random bytes: launch counts, raw
@@ -413,11 +472,7 @@ def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None, payload_
     sweep = knobs.get("matcher") == "sweep"
     match_mod, idle_mod = (hopper_sweep, hopper_match) if sweep else (hopper_match, hopper_sweep)
     label = "sweep" if sweep else "match"
-    rng = np.random.default_rng(SEED)
-    spliced = bytearray(payload)
-    for i in RANDOM_BLOCKS:
-        spliced[i * bs : (i + 1) * bs] = rng.integers(0, 256, bs, dtype=np.uint8).tobytes()
-    spliced = bytes(spliced)
+    spliced = splice(payload, bs)
     cfg = TorchCodecConfig(engine="cuda", block_size=bs, **knobs)
     nblocks = -(-len(spliced) // bs)
     raw = np.flatnonzero(pipeline.triage_incompressible(*pipeline.blockize_plain(spliced, bs))).tolist()
@@ -474,7 +529,66 @@ def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None, payload_
         f"{enc_batch['emit_ms']:.3f} ms = {enc_batch['bytes'] / kernel_ms / 1e6:.3f} GB/s")
     log(f"  plain PyTorch per batch: {label} {enc_batch['match_plain_ms']:.1f} ms, emit {enc_batch['emit_plain_ms']:.1f} ms")
     log(f"  native host compress, 1 thread: {host_gbs:.3f} GB/s; end-to-end / host = {e2e_gbs / host_gbs:.3f}")
-    return {"launches": launches, "e2e_gbs": e2e_gbs, "notes": dict(timer.notes), "ratio": len(stream) / len(spliced)}
+    return {
+        "launches": launches, "e2e_gbs": e2e_gbs, "notes": dict(timer.notes), "ratio": len(stream) / len(spliced),
+        "stream": stream, "batches": batches,
+    }
+
+
+def run_cli(argv: list[str], cwd: str) -> tuple[dict, str]:
+    """One run of the port's CLI in a process of its own; returns (its
+    kernels' launch counts and exit code, its stdout) and raises if it
+    failed. Prints its wall time."""
+    root = os.path.dirname(os.path.abspath(__file__))  # the checkout: its package, run from anywhere
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_RUN, *argv], capture_output=True, text=True, cwd=cwd, env=env,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    counts = json.loads(lines[-1]) if lines and lines[-1].startswith('{"rc"') else {"rc": None}
+    if proc.returncode != 0 or counts["rc"] != 0:
+        raise AssertionError(f"CLI {argv} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    log(f"  CLI {' '.join(argv)}: {secs:.2f} s in its process, launches {counts}")
+    return counts, "\n".join(lines[:-1])
+
+
+def cli_round_trip(name: str, argv: list[str], payload: bytes, bs: int, want: bytes, tmp: str, batches: int) -> dict:
+    """Compress the payload through the CLI with argv's matcher flags; the
+    stream must equal ``want``, name the cuda engine in its JSON line, and
+    decompress back through the CLI and the native codec; the match and
+    emit kernels must run once per batch and the decode kernel once per
+    decompress batch. Returns the launch counts of both runs."""
+    from pim_compression_tpu_torch import native
+
+    src, comp, out = (os.path.join(tmp, f"{name}.{ext}") for ext in ("in", "snappy", "out"))
+    with open(src, "wb") as f:
+        f.write(payload)
+    counts, stdout = run_cli(["-c", "-b", str(bs), "--json", *argv, "-i", src, "-o", comp], tmp)
+    metrics = json.loads([line for line in stdout.splitlines() if line.startswith("{")][-1])
+    if metrics["engine"] != "cuda" or metrics["original_bytes"] != len(payload):
+        raise AssertionError(f"CLI {name}: JSON line {metrics}")
+    if (counts["match"], counts["emit"], counts["sweep"]) != (batches, batches, 0):
+        raise AssertionError(f"CLI {name}: launches {counts} for {batches} batches")
+    with open(comp, "rb") as f:
+        stream = f.read()
+    if stream != want:
+        raise AssertionError(f"CLI {name}: the stream differs from runtime.compress's")
+    dec_counts, _ = run_cli(["-i", comp, "-o", out], tmp)
+    with open(out, "rb") as f:
+        if f.read() != payload:
+            raise AssertionError(f"CLI {name}: the CLI's decompress does not give the payload back")
+    nb = -(-len(payload) // bs)
+    if dec_counts["decode"] != -(-nb // 1024) or dec_counts["match"]:
+        raise AssertionError(f"CLI {name}: decompress launches {dec_counts}")
+    if native.decompress(stream) != payload:
+        raise AssertionError(f"CLI {name}: the native decoder does not give the payload back")
+    phases = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in metrics["phases_s"].items())
+    log(f"  CLI {name}: stream equal ({len(stream)} bytes, ratio {len(stream) / len(payload):.4f}), "
+        f"{metrics['total_s']:.3f} s in its phases ({len(payload) / metrics['total_s'] / 1e9:.3f} GB/s; ms: {phases}), "
+        "decompresses back through the CLI and native")
+    return {"compress": counts, "decompress": dec_counts, "gbs": len(payload) / metrics["total_s"] / 1e9,
+            "phases": metrics["phases_s"]}
 
 
 def main() -> int:
@@ -611,7 +725,8 @@ def main() -> int:
     log("phase 8: encode error path")
     refused = (
         dict(block_size=WIDE_BS, matcher="sweep"), dict(block_size=16384 + 128, matcher="sweep"),
-        dict(SWEEP_MAIN, block_size=SWEEP_BS + 128), dict(sort_window=16384), dict(block_size=1000), dict(prev_k=2),
+        dict(SWEEP_MAIN, block_size=SWEEP_BS + 128), dict(block_size=1000), dict(sort_window=65536),
+        dict(block_size=24576, sort_window=65536),
     )
     mods = (hopper_decode, hopper_match, hopper_sweep, hopper_encode)
     for knobs in refused:
@@ -682,13 +797,46 @@ def main() -> int:
     # 12. The sweep main path.
     log(f"phase 12: sweep compress main path at bs {SWEEP_BS}")
     sweep_comp = compress_main(sweep_payload, SWEEP_BS, sweep_batch, SWEEP_MAIN, payload_raw=True)
+
+    # 13. The sort modes and ladders: the match kernel in its strided,
+    # windowed and per-rung-ladder configs against its plain version.
+    log("phase 13: sort-mode and ladder kernels vs plain PyTorch")
+    mode_stats = {}
+    for name, (bs, fields, _) in SORT_MODES.items():
+        knobs = hopper_encode.encode_knobs(TorchCodecConfig(block_size=bs, **fields))
+        rows, rows_lens = (full, full_lens) if bs == BS else (wide_full, wide_lens)
+        hb, hl = streams.hand_plain_blocks(bs, SEED)
+        blocks, lens = np.concatenate([rows[:128], hb]), np.concatenate([rows_lens[:128], hl])
+        mode_stats[name] = compare_encode(f"config-{name}-128-and-hand-built", blocks, lens, device, knobs)
+    knobs_a = hopper_encode.encode_knobs(TorchCodecConfig(block_size=BS, **SORT_MODES["a"][1]))
+    mode_stats["a-main-batch"] = compare_encode(f"config-a-main-batch-{n}", full[:n], full_lens[:n], device, knobs_a,
+                                                reps=10)
+    enc_stats += list(mode_stats.values())
+
+    # 14. The CLI at full width, each run in a process of its own.
+    log("phase 14: the CLI at full width")
+    spliced, wide_spliced = splice(payload, BS), splice(wide_payload, WIDE_BS)
+    cfg_a = TorchCodecConfig(engine="torch", device="cuda:0", block_size=BS, **SORT_MODES["a"][1])
+    t0 = time.perf_counter()
+    stream_a = bytes(runtime.compress(spliced, cfg_a))
+    log(f"  config (a) on the torch engine on the GPU: {time.perf_counter() - t0:.1f} s")
+    cfg_e = TorchCodecConfig(engine="cuda", block_size=WIDE_BS, **SORT_MODES["e"][1])
+    stream_e = bytes(runtime.compress(wide_spliced, cfg_e))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_runs = {
+            "32768-zero-flag": cli_round_trip("32768-zero-flag", [], spliced, BS, comp["stream"], tmp, comp["batches"]),
+            "32768-config-a": cli_round_trip("32768-config-a", SORT_MODES["a"][2], spliced, BS, stream_a, tmp,
+                                             comp["batches"]),
+            "65536-config-e": cli_round_trip("65536-config-e", SORT_MODES["e"][2], wide_spliced, WIDE_BS, stream_e,
+                                             tmp, wide_comp["batches"]),
+        }
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, max_err, ms, plain_ms, work, **extra):
         return {
             "name": name, "route": "cuda", "source": f"pim_compression_tpu_torch/csrc/{source}",
             "replaces": ", ".join(replaces), "launches": sum(launches.values()),
-            "launches_by_block_size": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "launches_by_path": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
             "library_ms": None,  # no single PyTorch call computes any of these functions
             **extra,
@@ -696,29 +844,39 @@ def main() -> int:
 
     # Times and bounds: the 64 KB shapes for decode (the 188-block comparison
     # batch), match and emit (one 1024-block batch at the zero-flag config);
-    # the sweep's main config for the sweep (one 1024-block batch at 8 KB).
-    # Launches: the main paths' runs (phases 4, 7, 10 and 12).
+    # the sweep's main config for the sweep (one 1024-block batch at 8 KB);
+    # the match's sort-mode configs beside (phase 13). Launches: the main
+    # paths' runs (phases 4, 7, 10 and 12) and the CLI's (phase 14).
+    def cli_launches(kernel):
+        return {f"cli {name} {side}": run[side][kernel] for name, run in cli_runs.items()
+                for side in ("compress", "decompress") if run[side][kernel]}
+
+    def timing(st):
+        return {"blocks": st["blocks"], "ms": st["match_ms"], "plain_ms": st["match_plain_ms"],
+                "bound_ms": st["match_bound"]["bound_ms"], "bound_by": st["match_bound"]["bound_by"],
+                "share": st["match_bound"]["bound_ms"] / st["match_ms"]}
+
     print(json.dumps({"kernels": [
         entry(
             "decode_blocks", "decode.cu",
             ["pim_compression_tpu/ops/pallas_decode.py:87", "pim_compression_tpu/ops/pallas_decode.py:263",
              "pim_compression_tpu/ops/pallas_decode.py:620"],
-            {str(BS): dec["launches"], str(WIDE_BS): wide_dec["launches"]},
+            {str(BS): dec["launches"], str(WIDE_BS): wide_dec["launches"], **cli_launches("decode")},
             max(st["max_abs_err"] for st in stats), wide_stats["ms"], wide_stats["plain_ms"], wide_stats["bound"],
         ),
         entry(
             "match_blocks", "match.cu",
             ["pim_compression_tpu/ops/pallas_match.py:131", "pim_compression_tpu/ops/pallas_match.py:548",
              "pim_compression_tpu/ops/pallas_match.py:679", "pim_compression_tpu/ops/pallas_match.py:821"],
-            {str(BS): comp["launches"][0], str(WIDE_BS): wide_comp["launches"][0]},
+            {str(BS): comp["launches"][0], str(WIDE_BS): wide_comp["launches"][0], **cli_launches("match")},
             max(st["match_err"] for st in enc_stats), wide_enc_batch["match_ms"], wide_enc_batch["match_plain_ms"],
-            wide_enc_batch["match_bound"],
+            wide_enc_batch["match_bound"], configs={name: timing(st) for name, st in mode_stats.items()},
         ),
         entry(
             "emit_blocks", "emit.cu",
             ["pim_compression_tpu/ops/pallas_encode.py:559", "pim_compression_tpu/ops/pallas_encode.py:863"],
             {str(BS): comp["launches"][1], str(WIDE_BS): wide_comp["launches"][1],
-             str(SWEEP_BS): sweep_comp["launches"][1]},
+             str(SWEEP_BS): sweep_comp["launches"][1], **cli_launches("emit")},
             max(st["emit_err"] for st in enc_stats + sweep_stats), wide_enc_batch["emit_ms"],
             wide_enc_batch["emit_plain_ms"], wide_enc_batch["emit_bound"],
         ),

@@ -106,7 +106,7 @@ def load() -> ctypes.CDLL:
         lib.pim_match_blocks.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, near, first_half
             i32, i32, i32, i32, i32, i32,  # num_blocks, block_size, rung_mask, ext_cap, neighbor, max_lag
-            i32, i32,  # prev_k, sel_cap
+            i32, i32, i32, i32, i32,  # prev_k, sel_cap, mode, stride_code, window
             i32, ptr,  # device, stream
         ]
         lib.pim_sweep_blocks.restype = i32

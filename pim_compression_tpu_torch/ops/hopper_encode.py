@@ -2,9 +2,9 @@
 and ``encode_blocks``, which chains a match kernel and the emit kernel.
 
 ``encode_blocks`` is the port of ``pim_compression_tpu.ops.pallas_encode.
-encode_blocks_pallas`` with the sorted matcher on its rung-pick and
-``sel_all`` paths (block_size <= 65536) and with the sweep matcher, sampled
-or granular (block_size <= 16384). For CUDA tensors it launches
+encode_blocks_pallas`` with the sorted matcher in every mode it has
+(block_size <= 65536) and with the sweep matcher, sampled or granular
+(block_size <= 16384). For CUDA tensors it launches
 ``csrc/match.cu`` (``hopper_match.match_blocks``) or ``csrc/sweep.cu``
 (``hopper_sweep.sweep_match``) and then ``csrc/emit.cu`` (``emit_blocks``),
 which replaces the TPU kernels ``_emit_kernel`` and ``_emit_kernel_wide``
@@ -44,17 +44,21 @@ def encode_knobs(config, notes: dict | None = None) -> dict:
     The sweep matcher (``matcher="sweep"``) runs at block sizes up to 16384
     with ``match_window``, ``coarse_window`` and ``coarse_mode``, normalised
     by ``hopper_sweep.sweep_knobs``; it ignores the sorted matcher's knobs,
-    as the reference does. For the sorted matcher, the rung pick runs where
-    ``config.effective_rung_pick`` holds, the ``sel_all`` select ladder
-    where ``sel_all`` and ``sel_cap`` are set. Above 32768 the reference's
-    rule applies (``runtime/api.py:372-383``): a config without both
-    becomes ``sel_all`` with ``sel_cap or 16``, and ``notes["wide_select"]``
-    says so. Raises ``SnappyError(BAD_ARGUMENT)`` for a block size outside
-    the envelope (256 <= bs <= 65536, bs % 128 == 0), for the sweep above
-    16384 (where the reference falls back to its unported ``xla`` engine)
-    or granular at a block size that is not a multiple of 256, and for a
-    knob off those paths, naming the ROADMAP item that ports it. Nothing
-    reroutes.
+    as the reference does. The sorted matcher's knobs go through as the
+    reference's runtime hands them on (``runtime/api.py:372-405``): above
+    32768 a config without both ``sel_all`` and ``sel_cap`` becomes
+    ``sel_all`` with ``sel_cap or 16`` (``notes["wide_select"]`` says so);
+    the rung pick runs where ``config.effective_rung_pick`` holds and no
+    ``sel_cap`` is left, the ``sel_all`` select ladder where both are set,
+    and the per-rung ladder otherwise; each rung's stride is
+    ``rung_strides`` or, for rungs of ``stride2_min`` bytes and up, 2; and
+    ``sort_window`` passes as it is. Raises ``SnappyError(BAD_ARGUMENT)``
+    for a block size outside the envelope (256 <= bs <= 65536, bs % 128 ==
+    0), for the sweep above 16384 (where the reference falls back to its
+    unported ``xla`` engine) or granular at a block size that is not a
+    multiple of 256, and for a knob the reference's sorted matcher refuses
+    too (a ``sort_window`` that does not divide the padded sort size, a
+    ``sel_cap`` above ``ext_cap`` after the 64 KB switch). Nothing reroutes.
     """
     bs = config.block_size
     sel_cap, sel_all = config.sel_cap, config.sel_all
@@ -73,27 +77,26 @@ def encode_knobs(config, notes: dict | None = None) -> dict:
             if bs > hopper_sweep.MAX_SWEEP_BLOCK:
                 gap += "; the reference falls back to its xla engine there, not ported, ROADMAP A item 6"
             gap += ")"
-    elif config.stride2_min or config.sort_window or (
-        config.rung_strides and any(s != 1 for s in config.rung_strides)
-    ):
-        gap = "stride2_min, rung_strides and sort_window (the sort modes, ROADMAP A item 7)"
-    elif not (sel_all or config.effective_rung_pick):
-        gap = (
-            "prev_k > 1, sel_cap without sel_all, and rung_pick=False (the "
-            "non-sel_all ladder, ROADMAP A item 7)"
-        )
-    elif sel_cap > config.ext_cap:
-        gap = f"sel_cap {sel_cap} > ext_cap {config.ext_cap}"
     else:
+        rungs = tuple(config.rungs or hopper_match.RUNGS)
+        if config.rung_strides:
+            strides = tuple(config.rung_strides)
+        else:
+            strides = tuple(2 if config.stride2_min and r >= config.stride2_min else 1 for r in rungs)
         knobs = dict(
-            rungs=tuple(config.rungs or hopper_match.RUNGS), ext_cap=config.ext_cap,
-            neighbor=config.neighbor, max_lag=config.effective_max_lag,
+            rungs=rungs, ext_cap=config.ext_cap, neighbor=config.neighbor,
+            max_lag=config.effective_max_lag, prev_k=config.prev_k, sel_cap=sel_cap, sel_all=sel_all,
+            rung_pick=config.effective_rung_pick and not sel_cap, strides=strides,
+            sort_window=config.sort_window,
         )
-        if sel_all:
-            knobs.update(prev_k=config.prev_k, sel_cap=sel_cap, sel_all=True)
-        if wide_select and notes is not None:
-            notes["wide_select"] = f"sel_all sel_cap={sel_cap}"
-        return knobs
+        try:
+            hopper_match.check_knobs(bs, **{k: v for k, v in knobs.items() if k != "neighbor"})
+        except ValueError as e:
+            gap = f"{e} (the reference's sorted matcher refuses it too, ROADMAP C)"
+        else:
+            if wide_select and notes is not None:
+                notes["wide_select"] = f"sel_all sel_cap={sel_cap}"
+            return knobs
     raise SnappyError(SnappyStatus.BAD_ARGUMENT, f"encode: {gap}")
 
 

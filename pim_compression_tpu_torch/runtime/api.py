@@ -115,9 +115,10 @@ def compress(
     The device engines blockize the input, divert incompressible blocks to
     raw literal frames (``config.raw_triage``), and encode the rest in
     batches of ``config.batch_blocks`` (plus a tail batch), each h2d ->
-    match + emit -> d2h, synchronously. The sorted matcher's rung pick and
-    its ``sel_all`` select ladder at 256 <= block_size <= 65536 (a multiple
-    of 128) are ported, with the reference's switch to the ladder above
+    match + emit -> d2h, synchronously. The sorted matcher in every mode
+    (rung pick, ``sel_all`` select ladder, per-rung ladder; any rung
+    strides and sort window) at 256 <= block_size <= 65536 (a multiple of
+    128) is ported, with the reference's switch to the select ladder above
     32768 (``timer.notes["wide_select"]``), and so is the sweep matcher
     (``matcher="sweep"``: ``match_window``, ``coarse_window``, sampled or
     granular ``coarse_mode``) at block_size <= 16384 (granular at multiples

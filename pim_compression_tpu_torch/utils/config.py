@@ -127,7 +127,6 @@ class TorchCodecConfig:
     # extra sort — pallas_match._prev_step_kernel), worth +0.2-0.3 ratio
     # points per step up to k=4. Ignored by the sweep matcher. Default 2 =
     # the speed flagship; 4/6 are the balanced/ratio-champion points.
-    # The port refuses prev_k > 1 without sel_all at bs <= 32768 (ROADMAP A item 7).
     prev_k: int = 1
     # Sorted-matcher half-density sort threshold: rungs >= this length sort
     # only even positions (~40% fewer sort ops on those rungs,
@@ -136,7 +135,6 @@ class TorchCodecConfig:
     # be > 4 so the L=4 rung stays full density. Ignored by the sweep
     # matcher. The speed axis' reference analog is the cycle/ratio
     # tradeoff (compr_cycle_tradeoff.py).
-    # The port refuses it (BAD_ARGUMENT, ROADMAP A item 7).
     stride2_min: int = 0
     # Sorted-matcher select-then-extend cap (bytes): > 0 gives each prev
     # candidate only a cheap extension capped here, picks the per-position
@@ -146,7 +144,6 @@ class TorchCodecConfig:
     # candidate fully extended). Multiple of 4 in [4, 64]; only matters
     # when prev_k >= 2. Default 16 = the measured knee (sel12/sel8 lose
     # 2-4x more ratio per op saved).
-    # The port refuses sel_cap without sel_all at bs <= 32768 (ROADMAP A item 7).
     sel_cap: int = 0
     # Sorted-matcher global select-then-extend (requires sel_cap): every
     # candidate array — each rung AND the prev ladder — gets only the
@@ -160,7 +157,6 @@ class TorchCodecConfig:
     # 1/2/4/8; overrides stride2_min). E.g. (1, 8) sorts the long rung at
     # 1/8 density: xml @32K (4,32)+prev2+sel16 = 0.7595 vs 0.7636 at
     # (1, 4) and 0.7702 at (1, 2). The first rung must stay density 1.
-    # The port refuses any stride but 1 (ROADMAP A item 7).
     rung_strides: tuple[int, ...] | None = None
     # Sorted-matcher full-extension cap (bytes, multiple of 4 in
     # [max(sel_cap, 4), 64]): matches longer than this emit as chained
@@ -175,7 +171,6 @@ class TorchCodecConfig:
     # data-dependent gather sweeps than the prev2+sel16 ladder at BETTER
     # xml ratio (spec 0.8050 vs 0.7879); all corpus files stay below the
     # reference streams (docs/sweep_stats.json).
-    # The port refuses rung_pick=False without sel_all at bs <= 32768 (ROADMAP A item 7).
     rung_pick: bool = True
     # Sorted-matcher candidate window (bytes, power of two dividing the
     # block size; 0 = the whole block): > 0 runs each rung's sort
@@ -185,7 +180,6 @@ class TorchCodecConfig:
     # sort stages, trading long-range matches: xml @32K spec ratio
     # 0.7879 full -> 0.7693 @16K -> 0.7419 @8K (reference bar 0.7408,
     # docs/sweep_stats.json). 0 keeps the full-block window.
-    # The port refuses it (BAD_ARGUMENT, ROADMAP A item 7).
     sort_window: int = 0
     # Fold each position's left-neighbor match one byte shorter after the
     # rung/prev ladder (pallas_match.sorted_match_groups(neighbor=True)):

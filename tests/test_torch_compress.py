@@ -227,29 +227,71 @@ def test_torch_compress_64k_equals_the_spec(knobs):
 
 
 # ---------------------------------------------------------------------------
-# What is not ported raises; nothing falls back.
+# What is off the path an engine can run raises; nothing falls back.
 # ---------------------------------------------------------------------------
+
+# The sorted matcher's sort modes and ladders, ported: refused on the cuda
+# engine without a GPU only.
+PORTED_KNOBS = {
+    "prev-k-2": dict(prev_k=2), "sel-cap": dict(sel_cap=16),
+    "sel-all": dict(sel_cap=16, sel_all=True, stride2_min=16), "stride2": dict(stride2_min=16),
+    "rung-strides": dict(rung_strides=(1, 2)), "sort-window": dict(sort_window=512),
+    "no-rung-pick": dict(rung_pick=False),
+}
+REFUSED_KNOBS = {
+    "bs-65536": dict(block_size=65536, matcher="sweep"), "bs-1000": dict(block_size=1000),
+    "bs-128": dict(block_size=128), "sweep": dict(matcher="sweep"),
+    # A window must divide the block's padded sort size, as in the reference.
+    "window-past-block": dict(sort_window=65536), "window-past-1024": dict(block_size=1024, sort_window=2048),
+    "window-past-24576": dict(block_size=24576, sort_window=65536),
+}
+
+
+def _spec_stream(data: bytes, cfg: TorchCodecConfig) -> bytes:
+    """The reference pipeline's stream for a config at a power-of-two block
+    size: its triage and raw frames, and the NumPy spec's blocks with the
+    knobs its runtime hands the sorted matcher (runtime/api.py:372-405)."""
+    from pim_compression_tpu.ops import lane_model_encode as lme
+
+    bs = cfg.block_size
+    blocks, lens = ref_pipeline.blockize_plain(data, bs, -(-len(data) // bs))
+    raw = ref_pipeline.triage_incompressible(blocks, lens)
+    cap = pipeline.padded_capacity(bs)
+    comp, sizes = np.zeros((len(lens), cap), np.uint8), np.zeros(len(lens), np.int32)
+    comp[~raw], sizes[~raw] = lme.encode_lanes(
+        blocks[~raw], lens[~raw], bs, cap, matcher="sorted", rungs=cfg.rungs, prev_k=cfg.prev_k,
+        stride2_min=cfg.stride2_min, sel_cap=cfg.sel_cap, sel_all=cfg.sel_all, rung_strides=cfg.rung_strides,
+        ext_cap=cfg.ext_cap, neighbor=cfg.neighbor, sort_window=cfg.sort_window,
+        rung_pick=cfg.effective_rung_pick and not cfg.sel_cap, max_lag=cfg.effective_max_lag,
+    )
+    ref_pipeline.raw_literal_frames(blocks, lens, comp, sizes, np.flatnonzero(raw))
+    return bytes(ref_pipeline.assemble_compressed(comp, sizes, len(data), bs, len(lens)))
 
 
 @pytest.mark.parametrize("engine", ["cuda", "torch"])
-@pytest.mark.parametrize(
-    "knobs",
-    [
-        dict(block_size=65536, matcher="sweep"), dict(block_size=1000), dict(block_size=128), dict(prev_k=2),
-        dict(sel_cap=16), dict(sel_cap=16, sel_all=True, stride2_min=16), dict(stride2_min=16),
-        dict(rung_strides=(1, 2)), dict(sort_window=512), dict(matcher="sweep"), dict(rung_pick=False),
-    ],
-    ids=[
-        "bs-65536", "bs-1000", "bs-128", "prev-k-2", "sel-cap", "sel-all", "stride2",
-        "rung-strides", "sort-window", "sweep", "no-rung-pick",
-    ],
-)
-def test_off_path_knobs_raise_bad_argument(engine, knobs):
+@pytest.mark.parametrize("knobs", [*PORTED_KNOBS.values(), *REFUSED_KNOBS.values()],
+                         ids=[*PORTED_KNOBS, *REFUSED_KNOBS])
+def test_off_path_knobs_raise_bad_argument(engine, knobs, monkeypatch):
+    # Off the encoder's envelope both engines raise BAD_ARGUMENT before any
+    # launch; the cuda engine also without a GPU, for want of a device. The
+    # torch engine compresses the ported sort modes and ladders to the
+    # reference's stream.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = b"off the ported path " * 100
+    cfg = TorchCodecConfig(engine=engine, **knobs)
     launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES
-    with pytest.raises(SnappyError) as e:
-        runtime.compress(b"off the ported path " * 100, TorchCodecConfig(engine=engine, **knobs))
-    assert e.value.status == SnappyStatus.BAD_ARGUMENT
-    assert any(words in str(e.value) for words in ("ROADMAP", "multiples of 128", "sweep envelope"))
+    if engine == "torch" and knobs in PORTED_KNOBS.values():
+        stream = runtime.compress(data, cfg)
+        assert bytes(stream) == _spec_stream(data, cfg)
+        assert oracle.decompress(bytes(stream)) == data
+    else:
+        with pytest.raises(SnappyError) as e:
+            runtime.compress(data, cfg)
+        assert e.value.status == SnappyStatus.BAD_ARGUMENT
+        words = ("needs a CUDA device",) if knobs in PORTED_KNOBS.values() else (
+            "ROADMAP", "multiples of 128", "sweep envelope", "padded sort size"
+        )
+        assert any(w in str(e.value) for w in words), str(e.value)
     assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES) == launches
 
 

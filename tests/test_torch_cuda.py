@@ -14,6 +14,8 @@ byte); and the engines against the plaintext.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import random
 
 import numpy as np
@@ -125,6 +127,16 @@ MAIN = dict(rungs=(4, 16), ext_cap=48, neighbor=True, max_lag=8192)
 # ladder, and the presets' rungs=(4,), prev_k=2 (max_lag 0 or 16384).
 WIDE = dict(rungs=(4, 16), ext_cap=48, neighbor=True, max_lag=0, sel_cap=16, sel_all=True)
 PRESET = dict(rungs=(4,), ext_cap=48, neighbor=True, max_lag=16384, prev_k=2, sel_cap=16, sel_all=True)
+# The sort modes and the per-rung ladder (as encode_knobs gives them): (a)
+# the capped per-rung ladder with half-density long rungs, (b) the uncapped
+# ladder, (c) the windowed rung pick, (d) sel_all at strides (1, 8), (e) at
+# 64 KB the stride-2 rung's 17-bit keys and the window.
+LADDER_A = dict(rungs=(4, 8, 16, 32, 64), strides=(1, 1, 2, 2, 2), prev_k=4, sel_cap=16, rung_pick=False,
+                ext_cap=48, neighbor=True, max_lag=8192)
+LADDER_B = dict(MAIN, prev_k=6, rung_pick=False)
+WINDOW_C = dict(MAIN, sort_window=8192)
+STRIDES_D = dict(MAIN, rungs=(4, 32), strides=(1, 8), prev_k=2, sel_cap=16, sel_all=True)
+WIDE_E = dict(WIDE, rungs=(4, 32), strides=(1, 2), sort_window=16384)
 
 
 @pytest.mark.parametrize(
@@ -132,9 +144,14 @@ PRESET = dict(rungs=(4,), ext_cap=48, neighbor=True, max_lag=16384, prev_k=2, se
     [(256, MAIN), (4096, MAIN), (24576, MAIN), (32768, MAIN),
      (4096, dict(rungs=(4, 8, 16, 32, 64), ext_cap=64, neighbor=False, max_lag=0)),
      (4096, dict(PRESET, rungs=(4, 8, 64), prev_k=4, sel_cap=8, max_lag=300)),
-     (32768, PRESET), (40960, WIDE), (65536, WIDE), (65536, PRESET), (65536, MAIN)],
+     (32768, PRESET), (40960, WIDE), (65536, WIDE), (65536, PRESET), (65536, MAIN),
+     (32768, LADDER_A), (4096, dict(LADDER_A, sort_window=1024)), (32768, LADDER_B), (32768, WINDOW_C),
+     (24576, WINDOW_C), (32768, STRIDES_D), (65536, WIDE_E), (40960, WIDE_E), (65536, dict(WIDE_E, sort_window=0)),
+     (65536, dict(LADDER_B, strides=(1, 4), sort_window=512)), (1024, dict(MAIN, strides=(1, 8), sort_window=512))],
     ids=["256", "4096", "24576", "32768", "4096-all-rungs", "4096-ladder", "32768-ladder",
-         "40960-wide", "65536-wide", "65536-preset", "65536-rung-pick"],
+         "40960-wide", "65536-wide", "65536-preset", "65536-rung-pick",
+         "32768-a", "4096-a-window", "32768-b", "32768-c", "24576-c", "32768-d", "65536-e", "40960-e",
+         "65536-e-no-window", "65536-ladder-window-512", "1024-window-strided"],
 )
 def test_cuda_encode_kernels_match_plain_versions(cuda_device, block_size, knobs):
     n = 300 if block_size <= 4096 else 40
@@ -271,3 +288,55 @@ def test_cuda_sweep_wrapper_rejects_bad_tensors(cuda_device):
         hopper_sweep.sweep_match(blocks, lens.cpu())
     with pytest.raises(ValueError):  # past the sweep envelope
         hopper_sweep.sweep_match(torch.zeros((1, 32768), dtype=torch.uint8, device=cuda_device), lens[:1])
+
+
+# The CLI on the GPU: its default engine is cuda.
+CONFIG_A_FLAGS = ["--rungs", "full", "--prev-k", "4", "--sel-cap", "16", "--stride2-min", "16"]
+
+
+@pytest.mark.parametrize("flags", [[], CONFIG_A_FLAGS], ids=["zero-flag", "config-a"])
+def test_cuda_cli_round_trip(cuda_device, flags, tmp_path, capsys):
+    from pim_compression_tpu_torch import cli
+
+    data = streams.text_payload(5 * 32768 + 777, 21)
+    src, comp, out = tmp_path / "in.txt", tmp_path / "c.snappy", tmp_path / "rt.txt"
+    src.write_bytes(data)
+    launches = hopper_match.LAUNCHES
+    assert cli.main(["-c", "-b", "32768", "--json", *flags, "-i", str(src), "-o", str(comp)]) == 0
+    assert hopper_match.LAUNCHES == launches + 1
+    stdout = capsys.readouterr().out
+    assert json.loads([line for line in stdout.splitlines() if line.startswith("{")][0])["engine"] == "cuda"
+    cfg = cli._config(cli.build_parser().parse_args([*flags, "-i", "x"]), 32768, "torch")
+    plain = runtime.compress(data, dataclasses.replace(cfg, device="cuda:0"))
+    assert comp.read_bytes() == bytes(plain)
+    assert cli.main(["-i", str(comp), "-o", str(out)]) == 0
+    assert out.read_bytes() == data and oracle.decompress(comp.read_bytes()) == data
+
+
+@pytest.mark.parametrize(
+    "argv", [["-c"], ["-c", *CONFIG_A_FLAGS], ["-c", "-b", "65536", "--rungs", "4,32", "--rung-strides", "1,2",
+                                               "--sort-window", "16384"], []],
+    ids=["compress-zero-flag", "compress-config-a", "compress-64k-config-e", "decompress"],
+)
+def test_cuda_debug_dump_reports_no_mismatch(cuda_device, argv, tmp_path, monkeypatch, capsys):
+    from pim_compression_tpu_torch import cli
+
+    monkeypatch.chdir(tmp_path)
+    data = streams.text_payload(3 * 65536, 23)
+    src = tmp_path / "in.bin"
+    src.write_bytes(data if "-c" in argv else _compress(data, 32768))
+    assert cli.main([*argv, "--debug-block", "1", "-i", str(src)]) == 0
+    assert "0 phases differ" in capsys.readouterr().out
+    dump = np.load(tmp_path / "pim_debug_block.npz")
+    phase = "match.len" if "-c" in argv else "decode.bytes"
+    assert np.array_equal(dump[f"plain.{phase}"], dump[f"kernel.{phase}"]) and dump[f"plain.{phase}"].size
+
+
+def test_cuda_cli_profile_traces_the_kernels(cuda_device, tmp_path):
+    from pim_compression_tpu_torch import cli
+
+    src, comp = tmp_path / "in.txt", tmp_path / "c.snappy"
+    src.write_bytes(streams.text_payload(3 * 32768, 25))
+    assert cli.main(["-c", "--profile", str(tmp_path / "prof"), "-i", str(src), "-o", str(comp)]) == 0
+    trace = (tmp_path / "prof" / "trace.json").read_text()
+    assert "match_blocks_kernel" in trace and "emit_blocks_kernel" in trace

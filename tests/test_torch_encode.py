@@ -217,13 +217,24 @@ def test_cpu_wrappers_take_the_plain_versions():
     assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES) == launches
 
 
-@pytest.mark.parametrize(
-    "knobs",
-    [dict(rungs=(16, 4)), dict(rungs=(4, 12)), dict(rungs=()), dict(ext_cap=50), dict(ext_cap=68), dict(max_lag=-1)],
-    ids=["descending", "not-a-rung", "no-rungs", "ext-cap-50", "ext-cap-68", "negative-lag"],
-)
+BAD_KNOBS = {
+    "descending": dict(rungs=(16, 4)), "not-a-rung": dict(rungs=(4, 12)), "no-rungs": dict(rungs=()),
+    "ext-cap-50": dict(ext_cap=50), "ext-cap-68": dict(ext_cap=68), "negative-lag": dict(max_lag=-1),
+    "stride-3": dict(strides=(1, 3)), "strided-4-byte-rung": dict(strides=(2, 1)), "strides-short": dict(strides=(1,)),
+    "window-300": dict(sort_window=300), "window-256": dict(sort_window=256),
+    "window-past-block": dict(sort_window=512),  # the 256-byte block's sort size is 256
+    "64k-window-131072": dict(bs=65536, sort_window=131072), "64k-stride-16": dict(bs=65536, strides=(1, 16)),
+    "64k-ladder-sel-cap-6": dict(bs=65536, rung_pick=False, prev_k=2, sel_cap=6),
+    "ladder-prev-k-9": dict(rung_pick=False, prev_k=9), "ladder-sel-cap-past-ext-cap": dict(rung_pick=False, sel_cap=52),
+    "rung-pick-prev-k-2": dict(prev_k=2), "sel-all-no-cap": dict(sel_all=True),
+}
+
+
+@pytest.mark.parametrize("knobs", list(BAD_KNOBS.values()), ids=list(BAD_KNOBS))
 def test_match_rejects_bad_knobs(knobs):
-    blocks, lens = _inputs(256, 1, 1)
+    knobs = dict(knobs)
+    bs = knobs.pop("bs", 256)
+    blocks, lens = _inputs(256, 1, 1) if bs == 256 else (np.zeros((1, bs), np.uint8), np.full(1, bs, np.int32))
     with pytest.raises(ValueError):
         hopper_match.match_blocks(torch.from_numpy(blocks), torch.from_numpy(lens), **{**MAIN, **knobs})
 
