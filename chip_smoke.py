@@ -71,8 +71,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      on the 64 KB payload (equal to runtime.compress's); each stream
      decompresses back through the CLI and the native codec, the JSON line
      names the cuda engine, and the kernels' launch counts, read in each CLI
-     process after its run, equal its batch counts.
-The line before the last is a JSON summary of the kernels, each with its
+     process after its run, equal its batch counts;
+ 15. the probes: each probe kernel of csrc/probes.cu (the gather and
+     elementwise chains, the copy, the mix rounds and the chain fold) against
+     its plain PyTorch version on the same CUDA tensors, exactly, at every
+     shape of the JAX package's probe scripts of at most 50,000 steps (the
+     1M- and 1.6M-step chains are timed only); then, with the launch counts
+     set to 0, the port's three probe scripts (transfer_probe, hw_probe,
+     emu_calibrate) through their run(), which must launch every probe
+     kernel; their records are printed;
+ 16. devbench: runtime.devbench.slope_measure on the "cuda" engine at bs
+     32768 over the phase-4 payload: its G=8 batch is phase 6's main batch,
+     so its encode ratio must equal round(1 - r, 4) with r phase 6's
+     compressed / plaintext ratio; each kernel launches once per timed call.
+Before the kernels line, a "probes" JSON line gives the card's measured
+device copy rate and int32 rates beside the datasheet's (the bounds keep the
+datasheet's). The line before the last is a JSON summary of the kernels, each with its
 time, its plain version's, its launches on the main paths and its bound (the
 larger of the bytes it must move over the card's memory rate and the integer
 operations its inputs need over the card's integer rate: for the sorted
@@ -80,7 +94,8 @@ matcher one table step per sorted row (ceil(bs / stride) of a rung) and
 candidate (prev_k on the 4-byte rung in the ladder modes) plus one word
 compare per 4 bytes of each output length; for the sweep one table step per position
 plus the pairs whose first words match, with the exhaustive loop's pairs
-beside); the last line is {"ok": true, "device": {...}}.
+beside; for a probe the steps its inputs take); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -118,6 +133,12 @@ SORT_MODES = {
     "e": (WIDE_BS, dict(rungs=(4, 32), rung_strides=(1, 2), sort_window=16384),
           ["--rungs", "4,32", "--rung-strides", "1,2", "--sort-window", "16384"]),
 }
+# The probes' main shapes, where the kernels line times them (phase 15): the
+# copy at its largest, the mix rounds at their longest, the chain fold at its
+# largest point a plain version is compared at.
+PROBE_COPY = (32768, 32768)
+PROBE_MIX_ITERS = 8000
+PROBE_CHAIN = (8192, 50_000)
 # Runs the CLI as `python -m pim_compression_tpu_torch` does, then prints
 # the kernels' launch counts of that process as its last line.
 CLI_RUN = (
@@ -132,11 +153,16 @@ CLI_RUN = (
     "                  'sweep': hopper_sweep.LAUNCHES, 'emit': hopper_encode.LAUNCHES}))\n"
 )
 
-# The card's rates for the bounds (H100 SXM): device memory 3.35 TB/s, and
-# int32 issue at 64 lanes per SM per clock on 132 SMs at the 1.98 GHz boost
-# clock (the codec's kernels are integer-only; no tensor-core rate applies).
+# The card's rates for the bounds (H100 SXM): device memory 3.35 TB/s (the
+# datasheet), and int32 operations at the issue limit, one warp instruction
+# per scheduler per clock (4 x 32 = 128 lanes per SM) on 132 SMs at the 1.98
+# GHz boost clock. The 64 INT32 lanes per SM alone (16.73e12 ops/s) are no
+# bound: integer multiplies issue to the FMA pipe beside them, and phase 15's
+# mix rounds and elementwise chain run above that rate. The codec's kernels
+# are integer-only; no tensor-core rate applies.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_LANES_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -160,7 +186,7 @@ def bound(nbytes: int, ops: int) -> dict:
     """The least time the card could take for the work: the larger of the
     bytes the function must move (each input read once, each output written
     once) over the memory rate and its integer operations over the int32
-    rate."""
+    issue limit."""
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return {
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -170,9 +196,10 @@ def bound(nbytes: int, ops: int) -> dict:
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
+    from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_probes, hopper_sweep
 
     hopper_decode.LAUNCHES = hopper_match.LAUNCHES = hopper_sweep.LAUNCHES = hopper_encode.LAUNCHES = 0
+    hopper_probes.LAUNCHES.update(dict.fromkeys(hopper_probes.LAUNCHES, 0))
 
 
 def sweep_pairs(blocks, lens, mlen, mlag, window: int, coarse_window: int, granular: bool) -> tuple[int, int]:
@@ -591,6 +618,131 @@ def cli_round_trip(name: str, argv: list[str], payload: bytes, bs: int, want: by
             "phases": metrics["phases_s"]}
 
 
+def compare_probe(name: str, kernel, plain, args, reps: int, timing_args=None) -> dict:
+    """A probe kernel against its plain version on the same CUDA tensors,
+    exactly; returns max_abs_err and both times (ms; the kernel's mean of
+    reps launches, taking ``timing_args`` in turn where given, every output
+    kept)."""
+    import itertools
+
+    import torch
+
+    from pim_compression_tpu_torch.scripts import common
+
+    out_k = kernel(*args)
+    torch.cuda.synchronize()
+    got = []
+    plain_ms = cuda_ms(lambda: got.append(plain(*args)), 1)
+    err = int((out_k.long() - got[0].long()).abs().max())
+    if out_k.shape != got[0].shape or err:
+        raise AssertionError(f"{name}: kernel and plain version differ (max abs err {err})")
+    turn, kept = itertools.cycle(timing_args or [args]), []
+    ms = common.event_seconds(lambda: kept.append(kernel(*next(turn))), reps) * 1e3  # device time, launches queued
+    log(f"  {name}: equal; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def probes_phase(device) -> dict:
+    """Phase 15: each probe kernel against its plain version at the JAX probe
+    scripts' shapes, then the port's probe scripts with the counts at 0.
+    Returns the kernels' stats (at each one's main shape: the chains at 10,000
+    steps, the copy at 32768 rows in and out, the mix rounds at 8000, the
+    chain fold at 8192 rows and 50,000 steps), the scripts' records and the
+    launch counts of their run."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from pim_compression_tpu_torch.ops import hopper_probes as hp
+    from pim_compression_tpu_torch.scripts import common, emu_calibrate, hw_probe, transfer_probe
+
+    common.warm(device)
+    rng = np.random.default_rng(SEED)
+
+    def int32(rows):
+        x = rng.integers(-(2**31), 2**31, (rows, hp.LANES), dtype=np.int64).astype(np.int32)
+        return torch.from_numpy(x).to(device)
+
+    stats = {}
+    xg, ig = hw_probe.gather_inputs(device)
+    xr, ir = int32(128), torch.from_numpy(rng.integers(0, 128, (128, 128)).astype(np.int32)).to(device)
+    steps = hw_probe.GATHER_STEPS
+    for name, kernel, plain in (("gather_chain", hp.gather_chain, hp.gather_chain_torch),
+                                ("ew_chain", hp.ew_chain, hp.ew_chain_torch)):
+        compare_probe(f"{name} seeded x{steps}", kernel, plain, (xr, ir, steps), 1)
+        st = compare_probe(f"{name} hw_probe inputs x{steps}", kernel, plain, (xg, ig, steps), 5)
+        st["bound"] = bound(2 * xg.numel() * 4 + 8 * hp.LANES * 4, 2 * xg.numel() * steps)
+        st["steps"] = steps
+        stats[name] = st
+    for in_rows, out_rows in transfer_probe.COPY_ROWS:
+        xs = common.cold_copies(int32(in_rows))  # timed from device memory, not L2
+        st = compare_probe(f"copy_rows {in_rows} -> {out_rows} rows", hp.copy_rows, hp.copy_rows_torch,
+                           (xs[0], out_rows), 20, [(x, out_rows) for x in xs])
+        if (in_rows, out_rows) == PROBE_COPY:
+            st["bound"] = bound(transfer_probe.copy_bytes(in_rows, out_rows), 0)
+            turn, kept = itertools.cycle(xs), []  # the one PyTorch call of the same function
+            st["library_ms"] = common.event_seconds(lambda: kept.append(next(turn)[:out_rows] + 1), 20) * 1e3
+            del kept
+            log(f"  library call x[:{out_rows}] + 1: {st['library_ms']:.4f} ms")
+            stats["copy_rows"] = st
+    for rows, iters in transfer_probe.COMPUTE:
+        x = int32(rows)
+        st = compare_probe(f"mix_rounds ({rows}, 128) x{iters}", hp.mix_rounds, hp.mix_rounds_torch, (x, iters), 10)
+        if iters == PROBE_MIX_ITERS:
+            st["bound"] = bound(x.numel() * 4 + 8 * hp.LANES * 4, 3 * iters * x.numel() + x.numel())
+            stats["mix_rounds"] = st
+    x = int32(8)
+    for rows, iterate in emu_calibrate.POINTS:
+        if iterate > PROBE_CHAIN[1]:
+            continue  # a plain version takes three launches a step: timed only, in emu_calibrate
+        st = compare_probe(f"chain_fold {rows} rows x{iterate}", hp.chain_fold, hp.chain_fold_torch,
+                           (x, rows, iterate), 3)
+        if (rows, iterate) == PROBE_CHAIN:
+            lanes = rows * hp.LANES
+            st["bound"] = bound(hp.LANES * 4 + 8 * hp.LANES * 4, 3 * iterate * lanes + lanes)
+            stats["chain_fold"] = st
+    for name, st in stats.items():
+        log(f"  {name}: bound {st['bound']['bound_ms']:.4f} ms ({st['bound']['bound_by']}), "
+            f"{st['bound']['bound_ms'] / st['ms']:.2%} of it")
+
+    reset_counts()
+    records = {name: mod.run(device) for name, mod in
+               (("transfer_probe", transfer_probe), ("hw_probe", hw_probe), ("emu_calibrate", emu_calibrate))}
+    counts = dict(hp.LAUNCHES)
+    idle = [name for name, n in counts.items() if not n]
+    if idle:
+        raise AssertionError(f"the probe scripts never launched {idle}: counts {counts}")
+    for name, recs in records.items():
+        log(f"  {name}: {json.dumps(recs)}")
+    log(f"  launches in the scripts' run: {counts}")
+    return {"stats": stats, "records": records, "launches": counts}
+
+
+def probes_summary(probes: dict, card: str) -> dict:
+    """The card's measured rates from phase 15's records, beside the
+    datasheet's: the device copy at its main shape, the triad, the int32
+    rate of the mix rounds at their longest and of the chain fit, the
+    dependent steps, and the host copies at the main path's batch sizes."""
+    transfer, hw, emu = (probes["records"][k] for k in ("transfer_probe", "hw_probe", "emu_calibrate"))
+    copy_main = next(r for r in transfer if r["kind"] == "copy" and (r["in_mb"], r["out_mb"]) == tuple(
+        rows * 512 / 1e6 for rows in PROBE_COPY))
+    compute_main = next(r for r in transfer if r["kind"] == "compute" and r["iters"] == PROBE_MIX_ITERS)
+    host = {f"{r['kind']} {'pinned' if r['pinned'] else 'pageable'} {r['bytes']} B": r["bytes_per_s"]
+            for r in transfer if r["kind"] in ("h2d", "d2h")}
+    return {
+        "card": card, "device_copy_bytes_per_s": copy_main["kernel_bytes_per_s"],
+        "triad_bytes_per_s": next(r for r in hw if r["probe"].startswith("triad"))["achieved_gbps"] * 1e9,
+        "datasheet_bytes_per_s": HBM_BYTES_PER_S,
+        "int32_ops_per_s": compute_main["int32_ops_per_s"], "int32_ops_per_s_fit": emu["int32_ops_per_s"],
+        "int32_lanes_ops_per_s": INT32_LANES_PER_S, "int32_issue_limit_ops_per_s": INT32_OPS_PER_S,
+        "dependent_round_s": next(r for r in hw if r["probe"].startswith("dependent"))["round_s"],
+        "gather_step_s": next(r for r in hw if r["probe"].startswith("gather chain"))["step_s"],
+        "elementwise_step_s": next(r for r in hw if r["probe"].startswith("elementwise"))["step_s"],
+        "host_copies_bytes_per_s": host,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -603,7 +755,7 @@ def main() -> int:
     from pim_compression_tpu_torch import TorchCodecConfig, native, runtime
     from pim_compression_tpu_torch.format import oracle
     from pim_compression_tpu_torch.ops import _build, hopper_decode, hopper_encode, hopper_match, hopper_sweep
-    from pim_compression_tpu_torch.runtime import pipeline
+    from pim_compression_tpu_torch.runtime import devbench, pipeline
     from pim_compression_tpu_torch.utils import streams
     from pim_compression_tpu_torch.utils.config import preset_overrides
     from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
@@ -830,6 +982,25 @@ def main() -> int:
             "65536-config-e": cli_round_trip("65536-config-e", SORT_MODES["e"][2], wide_spliced, WIDE_BS, stream_e,
                                              tmp, wide_comp["batches"]),
         }
+
+    # 15. The probes: each kernel against its plain version, then the scripts.
+    log("phase 15: probe kernels vs plain PyTorch, and the probe scripts")
+    t0 = time.perf_counter()
+    probes = probes_phase(device)
+    log(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
+
+    # 16. Devbench: the per-wave slope on device-resident batches.
+    log(f"phase 16: devbench at bs {BS}")
+    reset_counts()
+    bench = devbench.slope_measure(payload, TorchCodecConfig(engine="cuda", block_size=BS), iters=5)
+    want_ratio = round(1 - enc_batch["ratio"], 4)  # phase 6's main batch is devbench's G=8 batch
+    if bench["encode"]["ratio"] != want_ratio:
+        raise AssertionError(f"devbench: encode ratio {bench['encode']['ratio']}, phase 6 gives {want_ratio}")
+    calls = 2 * (1 + 5)  # G=1 and G=8, a first call and 5 timed each
+    launches = (hopper_match.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES)
+    if launches != (calls, calls, calls):
+        raise AssertionError(f"devbench: launches (match, emit, decode) {launches}, expected {calls} each")
+    log(f"  {json.dumps({'devbench': bench})}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, max_err, ms, plain_ms, work, **extra):
@@ -838,9 +1009,15 @@ def main() -> int:
             "replaces": ", ".join(replaces), "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes any of these functions
+            "library_ms": None,  # no single PyTorch call computes the codec's functions; the copy's entry sets it
             **extra,
         }
+
+    def probe_entry(name, replaces, shape):
+        st = probes["stats"][name]
+        return entry(name, "probes.cu", [replaces], {"phase 15 scripts": probes["launches"][name]},
+                     st["max_abs_err"], st["ms"], st["plain_ms"], st["bound"], shape=shape,
+                     **({"library_ms": st["library_ms"]} if "library_ms" in st else {}))
 
     # Times and bounds: the 64 KB shapes for decode (the 188-block comparison
     # batch), match and emit (one 1024-block batch at the zero-flag config);
@@ -856,6 +1033,8 @@ def main() -> int:
                 "bound_ms": st["match_bound"]["bound_ms"], "bound_by": st["match_bound"]["bound_by"],
                 "share": st["match_bound"]["bound_ms"] / st["match_ms"]}
 
+    gather_steps = probes["stats"]["gather_chain"]["steps"]
+    print(json.dumps({"probes": probes_summary(probes, card)}))
     print(json.dumps({"kernels": [
         entry(
             "decode_blocks", "decode.cu",
@@ -889,6 +1068,11 @@ def main() -> int:
             first_word_pairs=sweep_batch["first_word_pairs"],
             visited_bound_ms=sweep_batch["visited_bound"]["bound_ms"],
         ),
+        probe_entry("gather_chain", "scripts/hw_probe.py:120", f"(128, 128) x {gather_steps}"),
+        probe_entry("ew_chain", "scripts/hw_probe.py:159", f"(128, 128) x {gather_steps}"),
+        probe_entry("copy_rows", "scripts/transfer_probe.py:40", "{} -> {} rows".format(*PROBE_COPY)),
+        probe_entry("mix_rounds", "scripts/transfer_probe.py:44", f"(4096, 128) x {PROBE_MIX_ITERS}"),
+        probe_entry("chain_fold", "scripts/emu_calibrate.py:61", "{} rows x {}".format(*PROBE_CHAIN)),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -1,0 +1,236 @@
+// Hardware probes for Hopper (sm_90a): the H100 counterparts of the JAX
+// package's TPU probe kernels. They measure what the codec's kernels pay:
+// a dependent gather, a dependent integer op, and copies.
+//
+// Replaces five TPU kernels:
+//   scripts/hw_probe.py::gather_kernel        x <- take_along_axis(x, idx, axis=1) ^ 1
+//       on an int32 (128, 128) plane, iters times          -> gather_chain_kernel
+//   scripts/hw_probe.py::ew_kernel            x <- (x + idx) ^ 1, the same plane  -> ew_chain_kernel
+//   scripts/transfer_probe.py::kern_copy      out = x[0:out_rows] + 1, or, with more output
+//       rows than input rows, out = x[0] broadcast (no + 1) -> copy_rows_kernel
+//   scripts/transfer_probe.py::kern_compute   v <- (v * -1640531527) ^ (v >> 3) on an
+//       int32 (rows, 128) plane, then out[s, l] = sum over g of v[8g + s, l]
+//   scripts/emu_calibrate.py::chain_kernel    the same recurrence and fold from
+//       v0[r, l] = x[0, l] + r                               -> mix_rounds_kernel (both)
+//
+// Gather chain. One CTA of 1024 threads holds the whole plane (64 KB) in
+// shared memory, as the TPU kernel holds it in one core's VMEM. A row only
+// reads itself, so each warp owns 4 rows and each lane 4 columns of each:
+// a step loads the lane's 16 gathered values into registers, __syncwarp,
+// stores them xor 1, __syncwarp. idx stays in registers. What bounds it:
+// shared-memory load and store issue on one SM (16384 loads, random banks,
+// and 16384 stores a step; about 1950 cycles a step on an H100, 7.4 times
+// the elementwise step), and the load latency of each dependent step.
+//
+// Elementwise chain. The same CTA and ownership, the 16 values of a thread
+// in registers: two dependent integer ops a step. What bounds it: issue on
+// one SM; 16 independent chains a thread hide the add's and the xor's
+// latency, and it runs at about 125 of the SM's 128 lanes a clock (one warp
+// instruction per scheduler per clock).
+//
+// Both chains write the whole final plane, and the wrapper returns its rows
+// 0:8 (the TPU kernel's output). Storing rows 0:8 alone would let the
+// compiler sink the loop of the other rows under the store's condition; the
+// TPU compiler removed such work too (scripts/emu_calibrate.py:73-79).
+//
+// Copy. Grid-stride over 16-byte vectors (a row of 128 int32 is 32 of
+// them). What bounds it: device memory, one read and one write a vector.
+//
+// Compute and chain (one kernel, a flag for the starting plane). One
+// thread per element, the recurrence in registers, then one atomicAdd on
+// unsigned per element into the zeroed (8, 128) output: addition modulo
+// 2^32 is order-free, so the fold is exact and equals the TPU kernel's
+// wrapping int32 sum. The multiply is done in uint32 (0x9E3779B9 is
+// -1640531527), as signed overflow is undefined in C++; v >> 3 stays an
+// arithmetic shift of the signed value, as jnp's >> on int32 is, and both
+// operands come from the old v. What bounds it: integer issue when enough
+// warps are resident: the multiply goes to the FMA pipe, the shift and the
+// xor to the 64 INT32 lanes of an SM, so a round takes one SM clock a warp
+// (about 24e12 int32 ops/s on an H100, above the 64 lanes' 16.7e12); the
+// latency of the dependent chain when few warps are (8 rows are 1024
+// threads on 4 SMs: about 11 cycles a round). The fold's atomics are one
+// per element, noise beside the rounds.
+//
+// Every entry point returns cudaGetLastError() after its launch (0 on
+// success), launches on the given stream and does not synchronise.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kLanes = 128;
+constexpr int kPlaneRows = 128;
+constexpr int kChainThreads = 1024;
+constexpr int kRowsPerWarp = kPlaneRows / (kChainThreads / 32);  // 4
+constexpr int kColsPerLane = kLanes / 32;  // 4
+constexpr int kPlaneBytes = kPlaneRows * kLanes * 4;  // 65536: above 48 KB, dynamic only
+constexpr int kCopyThreads = 256;
+constexpr int kCopyMaxBlocks = 132 * 8;
+constexpr int kMixThreads = 256;
+constexpr uint32_t kMul = 0x9E3779B9u;  // -1640531527 as uint32
+
+__global__ void __launch_bounds__(kChainThreads)
+gather_chain_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ idx,
+                    int32_t* __restrict__ out, int iters) {
+  extern __shared__ int32_t plane[];  // [kPlaneRows][kLanes]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * kRowsPerWarp;
+  int ix[kRowsPerWarp][kColsPerLane];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      const int at = (row0 + r) * kLanes + lane + 32 * j;
+      plane[at] = x[at];
+      ix[r][j] = (row0 + r) * kLanes + (idx[at] & (kLanes - 1));
+    }
+  }
+  __syncwarp();
+  for (int it = 0; it < iters; ++it) {
+    int32_t g[kRowsPerWarp][kColsPerLane];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) g[r][j] = plane[ix[r][j]];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) plane[(row0 + r) * kLanes + lane + 32 * j] = g[r][j] ^ 1;
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      const int at = (row0 + r) * kLanes + lane + 32 * j;
+      out[at] = plane[at];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kChainThreads)
+ew_chain_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ idx,
+                int32_t* __restrict__ out, int iters) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * kRowsPerWarp;
+  uint32_t v[kRowsPerWarp][kColsPerLane], ix[kRowsPerWarp][kColsPerLane];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      const int at = (row0 + r) * kLanes + lane + 32 * j;
+      v[r][j] = static_cast<uint32_t>(x[at]);
+      ix[r][j] = static_cast<uint32_t>(idx[at]);
+    }
+  }
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+      for (int j = 0; j < kColsPerLane; ++j) v[r][j] = (v[r][j] + ix[r][j]) ^ 1u;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      out[(row0 + r) * kLanes + lane + 32 * j] = static_cast<int32_t>(v[r][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t plus_one(int32_t a) { return static_cast<uint32_t>(a) + 1u; }
+
+__global__ void __launch_bounds__(kCopyThreads)
+copy_rows_kernel(const int4* __restrict__ x, int4* __restrict__ out, int64_t n4, int broadcast) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n4; i += step) {
+    if (broadcast) {
+      out[i] = x[i & (kLanes / 4 - 1)];
+    } else {
+      const int4 a = x[i];
+      out[i] = make_int4(static_cast<int>(plus_one(a.x)), static_cast<int>(plus_one(a.y)),
+                         static_cast<int>(plus_one(a.z)), static_cast<int>(plus_one(a.w)));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMixThreads)
+mix_rounds_kernel(const int32_t* __restrict__ x, uint32_t* __restrict__ out, int rows, int iters,
+                  int from_row0) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<int64_t>(rows) * kLanes) return;
+  const int r = static_cast<int>(i / kLanes), l = static_cast<int>(i % kLanes);
+  uint32_t v = from_row0 ? static_cast<uint32_t>(x[l]) + static_cast<uint32_t>(r)
+                         : static_cast<uint32_t>(x[i]);
+  for (int it = 0; it < iters; ++it) {
+    const uint32_t shifted = static_cast<uint32_t>(static_cast<int32_t>(v) >> 3);
+    v = (v * kMul) ^ shifted;
+  }
+  atomicAdd(&out[(r & 7) * kLanes + l], v);
+}
+
+}  // namespace
+
+// The gather chain on one (128, 128) int32 plane: x and idx in, the final
+// plane out (all three [128, 128]); idx is read as idx & 127.
+extern "C" int pim_probe_gather_chain(const void* x, const void* idx, void* out, int iters,
+                                      int device, void* stream) {
+  if (iters < 0) return cudaErrorInvalidValue;
+  cudaError_t st = cudaSetDevice(device);
+  if (st != cudaSuccess) return st;
+  st = cudaFuncSetAttribute(gather_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            kPlaneBytes);
+  if (st != cudaSuccess) return st;
+  gather_chain_kernel<<<1, kChainThreads, kPlaneBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(idx), static_cast<int32_t*>(out),
+      iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The elementwise chain on the same shapes.
+extern "C" int pim_probe_ew_chain(const void* x, const void* idx, void* out, int iters, int device,
+                                  void* stream) {
+  if (iters < 0) return cudaErrorInvalidValue;
+  cudaError_t st = cudaSetDevice(device);
+  if (st != cudaSuccess) return st;
+  ew_chain_kernel<<<1, kChainThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(idx), static_cast<int32_t*>(out),
+      iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x int32 [in_rows, 128] -> out int32 [out_rows, 128]: x[0:out_rows] + 1
+// when out_rows <= in_rows, else row 0 of x in every row.
+extern "C" int pim_probe_copy_rows(const void* x, void* out, int in_rows, int out_rows, int device,
+                                   void* stream) {
+  if (in_rows <= 0 || out_rows < 0) return cudaErrorInvalidValue;
+  if (out_rows == 0) return 0;
+  cudaError_t st = cudaSetDevice(device);
+  if (st != cudaSuccess) return st;
+  const int64_t n4 = static_cast<int64_t>(out_rows) * (kLanes / 4);
+  const int64_t want = (n4 + kCopyThreads - 1) / kCopyThreads;
+  const int blocks = static_cast<int>(want < kCopyMaxBlocks ? want : kCopyMaxBlocks);
+  copy_rows_kernel<<<blocks, kCopyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(x), static_cast<int4*>(out), n4, out_rows > in_rows ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The recurrence over rows x 128 elements, folded into out uint32 [8, 128],
+// which the caller zeroes. from_row0 = 0: the plane starts at x int32
+// [rows, 128]; 1: at x[0, l] + r (x int32 [>= 1, 128]). rows % 8 == 0.
+extern "C" int pim_probe_mix_rounds(const void* x, void* out, int rows, int iters, int from_row0,
+                                    int device, void* stream) {
+  if (rows <= 0 || rows % 8 || iters < 0) return cudaErrorInvalidValue;
+  cudaError_t st = cudaSetDevice(device);
+  if (st != cudaSuccess) return st;
+  const int64_t n = static_cast<int64_t>(rows) * kLanes;
+  const int blocks = static_cast<int>((n + kMixThreads - 1) / kMixThreads);
+  mix_rounds_kernel<<<blocks, kMixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<uint32_t*>(out), rows, iters, from_row0);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -121,5 +121,15 @@ def load() -> ctypes.CDLL:
             i32, i32, i32,  # num_blocks, block_size, cap
             i32, ptr,  # device, stream
         ]
+        for chain in (lib.pim_probe_gather_chain, lib.pim_probe_ew_chain):
+            chain.restype = i32
+            chain.argtypes = [ptr, ptr, ptr, i32, i32, ptr]  # x, idx, out, iters, device, stream
+        lib.pim_probe_copy_rows.restype = i32
+        lib.pim_probe_copy_rows.argtypes = [ptr, ptr, i32, i32, i32, ptr]  # x, out, in_rows, out_rows, device, stream
+        lib.pim_probe_mix_rounds.restype = i32
+        lib.pim_probe_mix_rounds.argtypes = [
+            ptr, ptr, i32, i32, i32,  # x, out, rows, iters, from_row0
+            i32, ptr,  # device, stream
+        ]
         _lib = lib
     return _lib

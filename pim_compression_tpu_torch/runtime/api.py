@@ -38,6 +38,8 @@ def decompress(
     buffer at ``start * block_size``; they return it without a detaching copy
     when it is 1 MiB or more. Batches run synchronously. With
     ``config.validate``, a block with any error bit raises ``SnappyError``.
+    A stream of no blocks gives ``b""`` on every engine, with or without a
+    device.
     """
     config = config or TorchCodecConfig()
     timer = timer if timer is not None else PhaseTimer()
@@ -49,6 +51,13 @@ def decompress(
         with timer.phase("kernel"):
             return native.decompress(stream, num_threads=config.num_threads)
 
+    with timer.phase("pre"):
+        info = pipeline.scan_frames(stream)
+        nb = len(info["payload_off"])
+        block_size = int(info["block_size"])
+        total_len = int(info["total_len"])
+        if nb == 0:  # before the device, as the reference returns
+            return b""
     device = resolve_device(config.engine, config.device)
     on_cuda = device.type == "cuda"
 
@@ -57,12 +66,6 @@ def decompress(
             torch.cuda.synchronize(device)
 
     with timer.phase("pre"):
-        info = pipeline.scan_frames(stream)
-        nb = len(info["payload_off"])
-        block_size = int(info["block_size"])
-        total_len = int(info["total_len"])
-        if nb == 0:
-            return b""
         comp, comp_len, out_len = pipeline.blockize_compressed(stream, info)
         comp, comp_len, out_len = (torch.from_numpy(a) for a in (comp, comp_len, out_len))
         result = native.uninit_bytearray(total_len) if native.available() else bytearray(total_len)
@@ -123,7 +126,9 @@ def compress(
     (``matcher="sweep"``: ``match_window``, ``coarse_window``, sampled or
     granular ``coarse_mode``) at block_size <= 16384 (granular at multiples
     of 256); any other size or knob raises ``SnappyError(BAD_ARGUMENT)``
-    (``hopper_encode.encode_knobs``) and nothing falls back. With
+    (``hopper_encode.encode_knobs``) and nothing falls back. Empty input
+    gives the header-only stream before any of these checks, on every
+    engine, with or without a device, as in the reference. With
     ``config.verify``, each batch is decoded again on its device and
     compared with its input blocks; a mismatch raises ``SnappyError``.
     """
@@ -137,11 +142,14 @@ def compress(
         with timer.phase("kernel"):
             return native.compress(data, config.block_size, num_threads=config.num_threads)
 
+    block_size = config.block_size
+    if not data:  # the header-only stream, before the knobs and the device, as the reference returns it
+        with timer.phase("pre"):
+            return oracle.compress(b"", block_size)
     select_notes: dict = {}
     knobs = hopper_encode.encode_knobs(config, select_notes)
     device = resolve_device(config.engine, config.device)
     on_cuda = device.type == "cuda"
-    block_size = config.block_size
     cap = pipeline.padded_capacity(block_size)
 
     def sync() -> None:
@@ -149,8 +157,6 @@ def compress(
             torch.cuda.synchronize(device)
 
     with timer.phase("pre"):
-        if not data:
-            return oracle.compress(b"", block_size)  # header-only stream
         blocks, lens = pipeline.blockize_plain(data, block_size)
         nb = len(lens)
         raw = pipeline.triage_incompressible(blocks, lens) if config.raw_triage else np.zeros(nb, bool)

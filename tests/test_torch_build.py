@@ -5,13 +5,17 @@ from __future__ import annotations
 import shutil
 
 import pytest
+import torch
 
 from pim_compression_tpu_torch.ops import _build
+
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
 
 
 def test_sources_are_the_csrc_kernels():
     names = [p.name for p in _build._sources()]
-    assert {"decode.cu", "match.cu", "emit.cu", "sweep.cu", "staging.cuh"} <= set(names)
+    assert {"decode.cu", "match.cu", "emit.cu", "sweep.cu", "probes.cu", "staging.cuh"} <= set(names)
     assert all(p.parent == _build.CSRC_DIR for p in _build._sources())
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 

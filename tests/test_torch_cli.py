@@ -22,6 +22,9 @@ from pim_compression_tpu.format import oracle
 from pim_compression_tpu_torch import cli, native
 from pim_compression_tpu_torch.utils import streams
 
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ENGINES = ["torch", "native", "oracle"]
 

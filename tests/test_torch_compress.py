@@ -27,6 +27,9 @@ from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
 
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(params=["native", "numpy"])
 def host_path(request, monkeypatch):
@@ -164,6 +167,35 @@ def test_torch_compress_round_trip(host_path, data):
         assert timer.notes["raw_blocks"] == 6 and timer.seconds["kernel"] == 0
         header = len(encode_varint32(len(data)) + encode_varint32(1024))
         assert len(stream) == header + 6 * (4 + 3 + 1024)  # frame, literal tag and 2 length bytes
+
+
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+@pytest.mark.parametrize("block_size", [1000, 32768])
+def test_empty_input_returns_before_any_check(engine, block_size, monkeypatch):
+    # The reference returns the header-only stream, and b"" for a stream of
+    # no blocks, before it checks the block size or looks for a device
+    # (pim_compression_tpu/runtime/api.py:154-160, :280-285). So does the
+    # port: at a block size its encoder refuses, and on the cuda engine
+    # without a GPU. Non-empty input at that size is still refused.
+    from pim_compression_tpu import runtime as ref_runtime
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    want = bytes(ref_runtime.compress(b"", CodecConfig(block_size=block_size)))
+    if block_size == 1000:
+        assert want == b"\x00\xe8\x07"
+    cfg = TorchCodecConfig(engine=engine, block_size=block_size)
+    launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES
+    assert bytes(runtime.compress(b"", cfg)) == want
+    for dec_engine in ("torch", "cuda", "native", "oracle"):
+        assert runtime.decompress(want, TorchCodecConfig(engine=dec_engine)) == b""
+    data = b"not empty " * 300
+    if engine == "torch" and block_size == 32768:  # on the path: compressed
+        assert oracle.decompress(bytes(runtime.compress(data, cfg))) == data
+    else:
+        with pytest.raises(SnappyError) as e:
+            runtime.compress(data, cfg)
+        assert e.value.status == SnappyStatus.BAD_ARGUMENT
+    assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES) == launches
 
 
 def test_torch_compress_verify_and_batches_agree():

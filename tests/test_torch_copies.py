@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from pim_compression_tpu import native as ref_native
 from pim_compression_tpu.format import constants as ref_constants
@@ -23,6 +24,9 @@ from pim_compression_tpu_torch import native
 from pim_compression_tpu_torch.format import constants, oracle, varint
 from pim_compression_tpu_torch.utils import config, errors
 from pim_compression_tpu_torch.utils import streams
+
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
 
 PORT_ONLY = {"engine", "device"}  # the port's engines and its device
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (decode, match, sweep, emit), on a GPU.
+"""The port's CUDA kernels (decode, match, sweep, emit, the probes) and devbench, on a GPU.
 
 Every test here needs a CUDA device and nvcc, carries the ``cuda`` marker
 and skips without a device. The file imports no JAX, so it also runs where
@@ -9,7 +9,7 @@ only PyTorch is installed:
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors: the decode kernel by verdicts on every block and bytes on valid
 blocks, the match and emit kernels exactly (every length, lag, size and
-byte); and the engines against the plaintext.
+byte), the probe kernels exactly; and the engines against the plaintext.
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ from pim_compression_tpu_torch import TorchCodecConfig, runtime
 from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
+
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -340,3 +343,86 @@ def test_cuda_cli_profile_traces_the_kernels(cuda_device, tmp_path):
     assert cli.main(["-c", "--profile", str(tmp_path / "prof"), "-i", str(src), "-o", str(comp)]) == 0
     trace = (tmp_path / "prof" / "trace.json").read_text()
     assert "match_blocks_kernel" in trace and "emit_blocks_kernel" in trace
+
+
+def _probe_int32(rng, rows):
+    x = rng.integers(-(2**31), 2**31, (rows, 128), dtype=np.int64).astype(np.int32)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("steps", [1, 7, 40, 10_000])
+@pytest.mark.parametrize("name", ["gather_chain", "ew_chain"])
+def test_cuda_probe_chains_match_plain_versions(cuda_device, name, steps):
+    from pim_compression_tpu_torch.ops import hopper_probes
+
+    rng = np.random.default_rng(steps)
+    x = _probe_int32(rng, 128)
+    idx = torch.from_numpy(rng.integers(0, 128, (128, 128)).astype(np.int32))
+    launches = hopper_probes.LAUNCHES[name]
+    got = getattr(hopper_probes, name)(x.to(cuda_device), idx.to(cuda_device), steps)
+    torch.cuda.synchronize()
+    assert hopper_probes.LAUNCHES[name] == launches + 1
+    want = getattr(hopper_probes, f"{name}_torch")(x, idx, steps)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("in_rows, out_rows", [(8, 8), (64, 8), (8, 64), (300, 300), (1, 4097)])
+def test_cuda_probe_copy_matches_plain_version(cuda_device, in_rows, out_rows):
+    from pim_compression_tpu_torch.ops import hopper_probes
+
+    x = _probe_int32(np.random.default_rng(in_rows), in_rows)
+    got = hopper_probes.copy_rows(x.to(cuda_device), out_rows)
+    assert torch.equal(got.cpu(), hopper_probes.copy_rows_torch(x, out_rows))
+
+
+@pytest.mark.parametrize("steps", [0, 1, 13, 100])
+@pytest.mark.parametrize("rows", [8, 64, 4096])
+def test_cuda_probe_mix_and_chain_match_plain_versions(cuda_device, rows, steps):
+    from pim_compression_tpu_torch.ops import hopper_probes
+
+    rng = np.random.default_rng(rows + steps)
+    x, start = _probe_int32(rng, rows), _probe_int32(rng, 8)
+    launches = dict(hopper_probes.LAUNCHES)
+    got_mix = hopper_probes.mix_rounds(x.to(cuda_device), steps)
+    got_chain = hopper_probes.chain_fold(start.to(cuda_device), rows, steps)
+    torch.cuda.synchronize()
+    assert hopper_probes.LAUNCHES["mix_rounds"] == launches["mix_rounds"] + 1
+    assert hopper_probes.LAUNCHES["chain_fold"] == launches["chain_fold"] + 1
+    assert torch.equal(got_mix.cpu(), hopper_probes.mix_rounds_torch(x, steps))
+    assert torch.equal(got_chain.cpu(), hopper_probes.chain_fold_torch(start, rows, steps))
+
+
+def test_cuda_probe_wrappers_reject_bad_tensors(cuda_device):
+    from pim_compression_tpu_torch.ops import hopper_probes
+
+    plane = torch.zeros((128, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # not contiguous
+        hopper_probes.gather_chain(plane.t(), plane, 1)
+    with pytest.raises(ValueError):  # mixed devices
+        hopper_probes.ew_chain(plane, plane.cpu(), 1)
+    with pytest.raises(ValueError):  # not int32
+        hopper_probes.copy_rows(plane.float(), 8)
+    with pytest.raises(ValueError):  # rows not a multiple of 8
+        hopper_probes.mix_rounds(plane[:12], 1)
+
+
+def test_cuda_devbench_slope_measure(cuda_device):
+    from pim_compression_tpu_torch.runtime import devbench
+
+    bs = 1024
+    plain = streams.text_payload(1024 * bs, 31)
+    launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES
+    res = devbench.slope_measure(plain, TorchCodecConfig(engine="cuda", block_size=bs), iters=2)
+    assert res["bs"] == bs and res["device"] == torch.cuda.get_device_name(cuda_device)
+    keys = {"t_g1_s", "t_g8_s", "per_group_s", "device_gbps", "compile_s"}
+    assert set(res["encode"]) == keys | {"ratio"} and set(res["decode"]) == keys
+    calls = 2 * (1 + 2)  # G=1 and G=8: a first call and 2 timed each
+    assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES) == (
+        launches[0] + calls, launches[1] + calls, launches[2] + calls
+    )
+    blocks, lens = pipeline.blockize_plain(plain, bs)
+    _, sizes = hopper_encode.encode_blocks_torch(
+        torch.from_numpy(blocks).to(cuda_device), torch.from_numpy(lens).to(cuda_device),
+        cap=pipeline.padded_capacity(bs), **hopper_encode.encode_knobs(TorchCodecConfig(block_size=bs)),
+    )
+    assert res["encode"]["ratio"] == round(1 - float(sizes.sum()) / (1024 * bs), 4)

@@ -23,6 +23,9 @@ from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
 
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
+
 MAIN = dict(rungs=(4, 16), ext_cap=48, neighbor=True, max_lag=8192)  # the main path's knobs
 CONFIGS = {
     "main": MAIN,

@@ -27,6 +27,9 @@ from pim_compression_tpu_torch.ops import hopper_decode
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
 
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 

@@ -26,6 +26,9 @@ from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
 
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
+
 # The configs of the sort modes, as config fields. (c)'s window is a
 # fraction of the block where the block is smaller than 8192 bytes' groups
 # allow: a window must divide the padded sort size.

@@ -22,6 +22,9 @@ from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
 from test_torch_sortmodes import _inputs, _spec_knobs
 
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
+
 
 # The interpret-mode Pallas kernels: one 128-block group at bs 1024 each,
 # the cases known to run there (tests/test_pallas_encode.py:548-570 with

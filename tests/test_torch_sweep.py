@@ -24,6 +24,9 @@ from pim_compression_tpu_torch.ops import hopper_encode, hopper_sweep
 from pim_compression_tpu_torch.runtime import pipeline
 from pim_compression_tpu_torch.utils import streams
 
+# One torch thread per test process: the xdist workers share the machine's cores.
+torch.set_num_threads(1)
+
 # (block_size, match_window, coarse_window): windows 32, 64 and 100 (which
 # rounds up to 128), coarse reaches 0, 544, 1088 and 1500 (cut to the block).
 SIZES = [
