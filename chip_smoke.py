@@ -1049,7 +1049,8 @@ def main() -> int:
              "pim_compression_tpu/ops/pallas_match.py:679", "pim_compression_tpu/ops/pallas_match.py:821"],
             {str(BS): comp["launches"][0], str(WIDE_BS): wide_comp["launches"][0], **cli_launches("match")},
             max(st["match_err"] for st in enc_stats), wide_enc_batch["match_ms"], wide_enc_batch["match_plain_ms"],
-            wide_enc_batch["match_bound"], configs={name: timing(st) for name, st in mode_stats.items()},
+            wide_enc_batch["match_bound"],
+            configs={"32768-zero-flag": timing(enc_batch), **{name: timing(st) for name, st in mode_stats.items()}},
         ),
         entry(
             "emit_blocks", "emit.cu",

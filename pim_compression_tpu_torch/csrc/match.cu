@@ -21,41 +21,69 @@
 // transcription hopper_match.match_blocks_torch.
 //
 // Design: one CTA per block, block sizes up to 65536. The block's bytes are
-// staged once in shared memory (zero at and past lens[b], plus 64 zero bytes
-// past the block, which is what the spec's zero-filled shifts read).
+// staged in shared memory (zero at and past lens[b], plus 64 zero bytes past
+// the block, which is what the spec's zero-filled shifts read): before each
+// rung's sort, which reuses their region, and once more for the selection.
+// Restaging reads the row again from device memory (L2 for a wave's blocks).
 //
-// Candidates. Per rung each thread hashes its rows straight from the bytes (no
-// hash plane is kept between rungs), and the CTA bitonic-sorts the words
-// (key << pos_bits) | row in shared memory. A rung of stride s sorts the rows
-// p / s of the positions p = 0, s, 2s, ...; pos_bits is 15 unless the rung's
-// padded row count (the block's power-of-two sort size over s) exceeds 32768,
-// then 16 (lane_model_encode.fold_key). Words are padded with 0xFFFFFFFF
-// sentinels to a power of two; a real word can equal a sentinel only in a full
-// sort, which has none, so the real words are the first ones sorted. A sorted
-// predecessor with an equal key gives the row's lag, times s, written straight
-// to that position of a uint16 lag plane in device memory; positions off the
-// stride get 0 (Hopper threads address memory freely, so the TPU's unsort, its
-// chunk-transposed word build, its compaction and its span sweeps have no
-// counterpart).
+// Candidates. A rung of stride s keys the rows p / s of the positions p = 0, s,
+// 2s, ...; pos_bits is 15 unless the rung's padded row count (the block's
+// power-of-two sort size over s) exceeds 32768, then 16
+// (lane_model_encode.fold_key). The spec sorts the unique words
+// (key << pos_bits) | row, whose rows start in ascending order, so a stable sort
+// on the key field alone gives the same order, and a row's nearest previous
+// equal key is its sorted predecessor when the keys are equal. Each rung builds
+// the words of up to 32768 rows in row order in one shared-memory buffer (each
+// thread hashes its rows straight from the bytes; no hash plane is kept between
+// rungs), then ranks them by an LSD radix sort of the key field: three passes of
+// 6+6+5 bits (pos_bits 15) or 6+5+5 (pos_bits 16), so at most 64 bins a pass.
+// Each warp owns a contiguous slice of the buffer and walks it 32 rows a step,
+// lane l on row base + 32 i + l. A pass is
+//   1. a count sweep: every thread reads its slice's words; per
+//      step the warp takes one ballot per digit bit, and lane l counts the lanes
+//      whose digit is l (and l + 32) as the AND of those ballots or their
+//      complements, in two registers: no atomics, no shared-memory counters;
+//   2. the counts go to shared memory in digit-major, warp-minor order (64 x 32
+//      uint16) and the CTA scans them once, exclusively;
+//   3. a scatter sweep of the words read in step 1: a lane's rank in its
+//      step is popc(peers & lanemask_lt), its peers the AND of the ballots as its
+//      own digit selects them; the running offset of a digit is kept by the lane
+//      that owns it and read with one shuffle.
+// Barriers: 4 a pass (after the counts, two in the scan, after the scatter)
+// instead of one per bitonic stage. The sort runs in place in one 128 KB
+// buffer, as the bitonic sort did, so a thread keeps the words it read (32 at
+// 1024 threads) across the barriers that separate reading the old order from
+// writing the new one: the first kHeld = 16 in registers, the rest parked in
+// the byte region (64 KB at 1024 threads). Holding all 32 in registers spilled
+// at the 64 registers a thread may have at 1024 threads (ptxas: a 624-byte
+// stack frame while the lags were kept in registers too, 48 bytes of spill
+// stores without them) and ran no faster; 512 threads with 64 words each in
+// 128 registers did not spill but ran 1.17-1.39x slower, with half the warps
+// (scripts/match_variants.py on an H100). Rows past the last
+// real one of the buffer take sentinels 0xFFFFFFFF, whose digits are all ones
+// and which start last, so a stable sort keeps them last and the real words
+// are the first sorted. Then one sweep over the sorted words takes each one's
+// predecessor with an equal key and writes its lag x s by row into the byte
+// region as uint16, and the rung's positions are copied out to its uint16 lag
+// plane in device memory, coalesced, with 0 at positions off the stride (the
+// TPU's unsort, its chunk-transposed word build, its compaction and its span
+// sweeps have no counterpart).
 //
-// Sort windows. A window of W bytes sorts each aligned group of W / s rows on
-// its own, and a row takes a predecessor only from its group. The bitonic
-// network stops at merge size W / s and runs that last merge ascending in every
-// group (the standard network would leave every other group descending). The
-// sentinels of a partial last group sort to its end, past the real words.
+// Sort windows. A window of W bytes takes a row's predecessor only from its own
+// aligned group of G = W / s rows. After one sort of the whole chunk, the
+// equal-key predecessor is the nearest previous row with that key; if it lies in
+// the row's group (prev / G == row / G) it is the answer, and otherwise no
+// earlier row of the group has the key, or it would be nearer. So a window costs
+// one integer compare, and no sort is run per group.
 //
 // 64 KB blocks. 65536 sort words are 256 KB, past the 232448 bytes a CTA may
 // use. A stride-1 rung with no window sorts each 32 KB half of the positions in
-// turn in one 128 KB buffer, and copies the sorted first half to a device-memory
-// scratch. A position's nearest previous equal key is its predecessor in its own
-// half's sorted run; a second-half position that is first of its key in its half
-// takes the last first-half position with that key, found by binary search of
-// the scratch. (key, pos) words are unique, so this is exactly the spec's
-// nearest previous position with an equal folded key. A strided rung has at most
-// 32768 rows, and a windowed one sorts groups of at most 32768 rows in turn, so
-// neither needs the search. Chosen over a sort in device memory (every one of
-// the 136 stages would go through L2) and over a two-CTA cluster (the sort's
-// barriers would span SMs).
+// turn in the one 128 KB buffer, and copies the sorted first half to a
+// device-memory scratch. A position's nearest previous equal key is its
+// predecessor in its own half's sorted run; a second-half position that is first
+// of its key in its half takes the last first-half position with that key, found
+// by binary search of the scratch. A strided rung has at most 32768 rows, and a
+// window's groups divide the 32768-row chunks, so neither needs the search.
 //
 // Selection, per position after the last rung, in one of three modes:
 // - rung pick: the longest rung with a candidate, capped at max_lag, wins;
@@ -70,20 +98,27 @@
 //   its winner is extended and folded.
 // The rung pick and the select extend their winner exactly at ext_cap; the
 // extension starts over rather than resuming from the capped state, which gives
-// the same length. The neighbor fold reads the pre-fold lengths and lags from
-// shared memory after a barrier.
+// the same length. An extension compares 4 bytes a step: two aligned 32-bit
+// shared loads joined by a funnel shift on each side, and the first differing
+// byte from the xor's lowest set bit. The neighbor fold reads the pre-fold
+// lengths and lags from shared memory after a barrier.
 //
-// Shared memory: bytes round16(bs + 64) + sort words 4 * min(n, 32768), n the
-// power of two >= bs: 163904 bytes at bs = 32768 and 196672 at 65536, one CTA
-// of 1024 threads per SM.
+// Shared memory: the byte region max(round16(bs + 64), 2 * words) + the sort
+// words 4 * words, words = max(min(n, 32768), 2 * threads) with n the power of
+// two >= bs, + the digit counts 2 * 64 * warps + 128 bytes of scan totals:
+// 200832 bytes at bs = 32768 and 200896 at 65536, one CTA of 1024 threads per SM.
 //
-// What bounds it: the sort. A rung of R sorted rows in groups of G runs
-// log2(G)(log2(G)+1)/2 compare-exchange stages per sort of up to 32768 rows,
-// each a pass over the buffer and a barrier: 120 for a full 32 KB sort, 105 at
-// stride 2, 91 for a 8192-row window. Hashing, the lag planes (2 bytes per
-// position and rung, L2-resident) and the extensions are a few passes.
-// Register-level sorting of the first stages, a radix sort on the key bits, or
-// several small blocks per CTA are left for later work.
+// What bounds it: the warp instructions of the sort, issued at about a third
+// of the SM's rate. Per rung and 32768 rows a pass is 1024 warp-steps of a
+// count sweep (a load, 5-6 ballots, the two owned bins' masks) and 1024 of a
+// scatter (the same ballots, the peers, two shuffles, a store), against the
+// bitonic network's 120 stages of 16384 compare-exchanges. On an H100 the
+// sort is about two thirds of the kernel's time at 32 KB and half at 64 KB
+// (the build without it, kPasses = 0, in scripts/match_variants.py); the
+// rest is hashing (byte loads of the staged block), the lag planes (2 bytes
+// per position and rung, L2-resident), the 64 KB halves' binary searches in
+// device memory and the extensions. Counting the next pass's digits during a
+// scatter, wider digits and several small blocks per CTA are left for later.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,6 +134,10 @@ constexpr int kHalf = 32768;  // rows sorted at once in shared memory
 constexpr int kMaxBlockSize = 2 * kHalf;
 constexpr int kPad = 64;  // the longest rung's window
 constexpr int kMaxThreads = 1024;
+constexpr int kSteps = kHalf / kMaxThreads;  // most rows a thread walks in a pass
+constexpr int kHeld = 16;  // of them held in registers; the rest parked in shared memory
+constexpr int kBins = 64;                    // digits of at most 6 bits
+constexpr int kPasses = 3;                   // 6+6+5 or 6+5+5 bits of key
 constexpr int kMaxPrevK = 8;
 constexpr int kMinWindow = 512;
 constexpr size_t kMaxSharedBytes = 232448;  // per-block limit on sm_90
@@ -116,8 +155,29 @@ __host__ __device__ inline int sort_rows(int bs) {
   return n < kHalf ? n : kHalf;
 }
 
+// Threads of the CTA: half the sort rows, whole warps, at most 1024.
+__host__ __device__ inline int block_threads(int bs) {
+  const int half = sort_rows(bs) / 2;
+  return half < 32 ? 32 : (half < kMaxThreads ? half : kMaxThreads);
+}
+
+// Sort words: every chunk's rows rounded up to whole thread-steps.
+__host__ __device__ inline int buffer_words(int bs) {
+  const int rows = sort_rows(bs), steps = 2 * block_threads(bs);
+  return rows > steps ? rows : steps;
+}
+
+// The first region: the block's bytes, or during a rung's sort the words
+// parked there (4 (kSteps - kHeld) threads bytes) and the lags by row (2 per
+// row), both at most 2 * buffer_words(bs) bytes.
+__host__ __device__ inline int region_bytes(int bs) {
+  const int bytes = pim::round16(bs + kPad), sort = 2 * buffer_words(bs);
+  return bytes > sort ? bytes : sort;
+}
+
 __host__ __device__ inline size_t shared_bytes(int bs) {
-  return static_cast<size_t>(pim::round16(bs + kPad)) + 4u * sort_rows(bs);
+  return static_cast<size_t>(region_bytes(bs)) + 4u * buffer_words(bs) +
+         2u * kBins * (block_threads(bs) / 32) + 4u * 32;
 }
 
 // The stride of the rung 4 << bit: 2 bits of log2(stride) per rung.
@@ -131,7 +191,7 @@ __host__ __device__ inline int padded_rows(int bs, int stride) {
   return rows > 1 ? rows : 1;
 }
 
-// Rows a rung sorts as one group: window / stride, or all its padded rows.
+// Rows of a rung's window group: window / stride, or all its padded rows.
 __host__ __device__ inline int group_rows(int bs, int stride, int window) {
   const int rows = padded_rows(bs, stride);
   return (window > 0 && window / stride < rows) ? window / stride : rows;
@@ -169,24 +229,106 @@ __device__ __forceinline__ uint32_t hash_at(const uint8_t* s, int p, int rung) {
   }
 }
 
-// Ascending bitonic sort of each aligned run of `group` words in w[0, n), by
-// the whole CTA; n and group are powers of two and group divides n. The last
-// merge (k == group) runs ascending in every group.
-__device__ void bitonic_sort(uint32_t* w, int n, int group, int tid, int nthreads) {
-  for (int k = 2; k <= group; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < n / 2; i += nthreads) {
-        const int a = 2 * i - (i & (j - 1));  // i with a zero bit inserted at j
-        const int b = a + j;
-        const uint32_t x = w[a], y = w[b];
-        const bool up = k == group || (a & k) == 0;
-        if ((x > y) == up) {
-          w[a] = y;
-          w[b] = x;
-        }
-      }
-      __syncthreads();
+// One warp-step of a radix pass over the digit (w >> shift) & (2^bits - 1),
+// bits 5 or 6: the lanes with this lane's digit (peers), and those whose digit
+// is this lane's own bin, lane (own_lo) or lane + 32 (own_hi).
+struct Split {
+  uint32_t digit, peers, own_lo, own_hi;
+};
+
+__device__ __forceinline__ Split multisplit(uint32_t w, int shift, int bits, int lane) {
+  const uint32_t d = (w >> shift) & ((1u << bits) - 1);
+  uint32_t peers = ~0u, own = ~0u;
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+    const uint32_t m = __ballot_sync(~0u, (d >> b) & 1);
+    peers &= ((d >> b) & 1) ? m : ~m;
+    own &= ((lane >> b) & 1) ? m : ~m;
+  }
+  const uint32_t m5 = bits > 5 ? __ballot_sync(~0u, (d >> 5) & 1) : 0u;  // uniform branch
+  peers &= ((d >> 5) & 1) ? m5 : ~m5;
+  return {d, peers, own & ~m5, own & m5};
+}
+
+// Exclusive scan, in place, of the 2 * nt uint16 digit counts (digit-major,
+// warp-minor), each thread taking one adjacent pair; tot holds 32 warp totals.
+// Starts and ends with the counts' writers and readers separated by barriers
+// of the caller.
+__device__ void scan_counts(uint16_t* hist, uint32_t* tot, int tid, int nt) {
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  uint32_t* pair = reinterpret_cast<uint32_t*>(hist);
+  const uint32_t two = pair[tid];
+  const uint32_t a = two & 0xFFFFu, s = a + (two >> 16);
+  uint32_t incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(~0u, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const uint32_t t = lane < nw ? tot[lane] : 0u;
+    uint32_t inc = t;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(~0u, inc, o);
+      if (lane >= o) inc += y;
     }
+    if (lane < nw) tot[lane] = inc - t;
+  }
+  __syncthreads();
+  const uint32_t base = tot[warp] + incl - s;  // at most 32768: fits a uint16
+  pair[tid] = base | ((base + a) << 16);
+}
+
+// Stable LSD radix sort of the words w[0, steps * nt) on bits [pos_bits, 32),
+// by the whole CTA; warp k owns words [k * 32 * steps, (k + 1) * 32 * steps).
+// A thread holds its first kHeld words of a pass in registers and parks the
+// rest in `parked` ((steps - kHeld) * nt words) between the sweeps.
+__device__ void radix_sort(uint32_t* words, uint32_t* parked, uint16_t* hist, uint32_t* tot, int steps,
+                           int pos_bits, int tid, int nt) {
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const uint32_t lt = (1u << lane) - 1;  // lanemask_lt
+  uint32_t* slice = words + warp * 32 * steps + lane;
+  for (int pass = 0, shift = pos_bits; pass < kPasses; ++pass) {
+    const int bits = (pass == 0 || (pass == 1 && pos_bits == 15)) ? 6 : 5;  // 6+6+5 or 6+5+5
+    uint32_t w[kHeld];
+    uint32_t c_lo = 0, c_hi = 0;  // words of digit lane and lane + 32 in this warp's slice
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      if (i < steps) {
+        const uint32_t x = slice[32 * i];
+        if (i < kHeld) {
+          w[i] = x;
+        } else {
+          parked[(i - kHeld) * nt + tid] = x;
+        }
+        const Split sp = multisplit(x, shift, bits, lane);
+        c_lo += __popc(sp.own_lo);
+        c_hi += __popc(sp.own_hi);
+      }
+    }
+    hist[lane * nw + warp] = static_cast<uint16_t>(c_lo);
+    hist[(lane + 32) * nw + warp] = static_cast<uint16_t>(c_hi);
+    __syncthreads();
+    scan_counts(hist, tot, tid, nt);
+    __syncthreads();
+    uint32_t run_lo = hist[lane * nw + warp], run_hi = hist[(lane + 32) * nw + warp];
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      if (i < steps) {
+        const uint32_t x = i < kHeld ? w[i] : parked[(i - kHeld) * nt + tid];
+        const Split sp = multisplit(x, shift, bits, lane);
+        const uint32_t lo = __shfl_sync(~0u, run_lo, sp.digit & 31);
+        const uint32_t hi = __shfl_sync(~0u, run_hi, sp.digit & 31);
+        words[(sp.digit < 32 ? lo : hi) + __popc(sp.peers & lt)] = x;
+        run_lo += __popc(sp.own_lo);
+        run_hi += __popc(sp.own_hi);
+      }
+    }
+    __syncthreads();
+    shift += bits;
   }
 }
 
@@ -206,13 +348,26 @@ __device__ int last_with_key(const uint32_t* w, int n, uint32_t key, int pos_bit
   return static_cast<int>(w[lo - 1] & ((1u << pos_bits) - 1));
 }
 
+// The 4 bytes at s[q, q + 4), little-endian, from two aligned 32-bit loads.
+__device__ __forceinline__ uint32_t load4(const uint8_t* s, int q) {
+  const uint32_t* s32 = reinterpret_cast<const uint32_t*>(s);
+  return __funnelshift_r(s32[q >> 2], s32[(q >> 2) + 1], (q & 3) * 8);
+}
+
 // Leading equal bytes of p and p - lag, at most cap; kept only from 4 up.
+// Reads stay below p + cap + 7 <= len + 7, inside the 64-byte zero pad.
 __device__ __forceinline__ int extend(const uint8_t* s, int p, int lag, int cap) {
   if (lag <= 0) return 0;
-  const uint8_t* a = s + p;
-  const uint8_t* c = a - lag;
   int n = 0;
-  while (n < cap && a[n] == c[n]) ++n;
+  while (n < cap) {
+    const uint32_t x = load4(s, p + n) ^ load4(s, p - lag + n);
+    if (x) {
+      n += (__ffs(x) - 1) >> 3;
+      break;
+    }
+    n += 4;
+  }
+  n = min(n, cap);
   return n < 4 ? 0 : n;
 }
 
@@ -223,22 +378,24 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
                     int rung_mask, int ext_cap, int neighbor, int max_lag, int prev_k,
                     int sel_cap, int mode, int stride_code, int window) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* s_bytes = smem;  // round16(bs + 64)
-  uint32_t* s_words = reinterpret_cast<uint32_t*>(smem + pim::round16(bs + kPad));  // sort_rows(bs)
+  const int nt = blockDim.x;
+  uint8_t* s_bytes = smem;  // region_bytes(bs): the bytes, or parked words and lags by row
+  uint32_t* s_parked = reinterpret_cast<uint32_t*>(smem);
+  uint16_t* s_near = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(smem + region_bytes(bs));  // buffer_words(bs)
+  uint16_t* s_hist = reinterpret_cast<uint16_t*>(s_words + buffer_words(bs));      // kBins * warps
+  uint32_t* s_tot = reinterpret_cast<uint32_t*>(s_hist + kBins * (nt >> 5));        // 32
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const int len = min(max(lens[b], 0), bs);
   const size_t row_base = static_cast<size_t>(b) * bs;
   const int n_rungs = __popc(rung_mask);
   uint16_t* planes = near + static_cast<size_t>(b) * n_rungs * bs;  // [n_rungs][bs]
   uint32_t* fh = first_half + static_cast<size_t>(b) * kHalf;        // used by a split sort
 
-  pim::stage_row(s_bytes, blocks + row_base, len, pim::round16(bs + kPad), tid, nt);
-  __syncthreads();
-
-  // Nearest previous equal key per rung, uncapped, into the lag planes.
+  // Nearest previous equal key per rung, uncapped, into the lag planes. The
+  // bytes are staged anew for each chunk: its sort reuses their region.
   for (int bit = 0, ri = 0; bit < 5; ++bit) {
     if (!(rung_mask & (1 << bit))) continue;
     const int rung = 4 << bit;
@@ -252,16 +409,12 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
     const int chunk = min(kHalf, rows_pad);  // rows sorted at once
     const bool split = group > chunk;        // stride 1, no window, above 32768 rows
     uint16_t* plane = planes + static_cast<size_t>(ri++) * bs;
-    if (stride > 1) {
-      for (int p = tid; p < bs; p += nt) {
-        if (p % stride) plane[p] = 0;
-      }
-    }
     for (int r0 = 0; r0 < cnt; r0 += chunk) {
       const int real = min(chunk, cnt - r0);
-      const int n = split ? sort_size(real) : max(group, sort_size(real));
-      const int g = split ? n : group;
-      for (int i = tid; i < n; i += nt) {
+      const int steps = (real + nt - 1) / nt;  // at most kSteps
+      pim::stage_row(s_bytes, blocks + row_base, len, pim::round16(bs + kPad), tid, nt);
+      __syncthreads();
+      for (int i = tid; i < steps * nt; i += nt) {
         uint32_t w = kSentinel;
         if (i < real) {
           const int row = r0 + i;
@@ -271,23 +424,31 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
         s_words[i] = w;
       }
       __syncthreads();
-      bitonic_sort(s_words, n, g, tid, nt);
+      radix_sort(s_words, s_parked, s_hist, s_tot, steps, pos_bits, tid, nt);
       // Sorted slots [0, real) hold the real words; equal keys sit in row order.
       for (int i = tid; i < real; i += nt) {
         const uint32_t w = s_words[i];
         const int row = static_cast<int>(w & pos_mask);
         int prev = -1;
-        if ((i & (g - 1)) > 0 && (s_words[i - 1] >> pos_bits) == (w >> pos_bits)) {
+        if (i > 0 && (s_words[i - 1] >> pos_bits) == (w >> pos_bits)) {
           prev = static_cast<int>(s_words[i - 1] & pos_mask);
+          if (prev / group != row / group) prev = -1;  // before the row's window group
         } else if (split && r0 > 0) {
           prev = last_with_key(fh, kHalf, w >> pos_bits, pos_bits);
         }
-        plane[row * stride] = static_cast<uint16_t>(prev >= 0 ? (row - prev) * stride : 0);
+        s_near[row - r0] = static_cast<uint16_t>(prev >= 0 ? (row - prev) * stride : 0);
         if (split && r0 == 0) fh[i] = w;
+      }
+      __syncthreads();
+      const int p0 = r0 * stride, p1 = min(bs, (r0 + real) * stride);
+      for (int p = p0 + tid; p < p1; p += nt) {
+        plane[p] = (p - p0) % stride ? 0 : s_near[(p - p0) / stride];
       }
       __syncthreads();
     }
   }
+  pim::stage_row(s_bytes, blocks + row_base, len, pim::round16(bs + kPad), tid, nt);
+  __syncthreads();
 
   // Selection and the winner's extension, per position; the pre-fold lag
   // goes to shared memory (the sort buffer is free) and the length out.
@@ -409,8 +570,7 @@ extern "C" int pim_match_blocks(const void* blocks, const void* lens, void* mlen
   if (split && first_half == nullptr) return cudaErrorInvalidValue;
   const size_t smem = shared_bytes(block_size);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  const int half = sort_rows(block_size) / 2;  // compare-exchange pairs per stage
-  const int threads = half < kMaxThreads ? half : kMaxThreads;
+  const int threads = block_threads(block_size);
   cudaError_t st = cudaSetDevice(device);
   if (st != cudaSuccess) return st;
   st = cudaFuncSetAttribute(match_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -150,11 +150,13 @@ WIDE_E = dict(WIDE, rungs=(4, 32), strides=(1, 2), sort_window=16384)
      (32768, PRESET), (40960, WIDE), (65536, WIDE), (65536, PRESET), (65536, MAIN),
      (32768, LADDER_A), (4096, dict(LADDER_A, sort_window=1024)), (32768, LADDER_B), (32768, WINDOW_C),
      (24576, WINDOW_C), (32768, STRIDES_D), (65536, WIDE_E), (40960, WIDE_E), (65536, dict(WIDE_E, sort_window=0)),
-     (65536, dict(LADDER_B, strides=(1, 4), sort_window=512)), (1024, dict(MAIN, strides=(1, 8), sort_window=512))],
+     (65536, dict(LADDER_B, strides=(1, 4), sort_window=512)), (1024, dict(MAIN, strides=(1, 8), sort_window=512)),
+     (32768, dict(MAIN, sort_window=512)), (49152, MAIN)],
     ids=["256", "4096", "24576", "32768", "4096-all-rungs", "4096-ladder", "32768-ladder",
          "40960-wide", "65536-wide", "65536-preset", "65536-rung-pick",
          "32768-a", "4096-a-window", "32768-b", "32768-c", "24576-c", "32768-d", "65536-e", "40960-e",
-         "65536-e-no-window", "65536-ladder-window-512", "1024-window-strided"],
+         "65536-e-no-window", "65536-ladder-window-512", "1024-window-strided",
+         "32768-window-512", "49152-partial-second-half"],
 )
 def test_cuda_encode_kernels_match_plain_versions(cuda_device, block_size, knobs):
     n = 300 if block_size <= 4096 else 40

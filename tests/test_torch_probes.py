@@ -27,7 +27,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from pim_compression_tpu_torch.ops import hopper_probes
-from pim_compression_tpu_torch.scripts import common, emu_calibrate, hw_probe, transfer_probe
+from pim_compression_tpu_torch.scripts import common, emu_calibrate, hw_probe, match_time, match_variants, transfer_probe
 
 # One torch thread per test process: the xdist workers share the machine's cores.
 torch.set_num_threads(1)
@@ -211,7 +211,10 @@ def test_copy_bytes_count_what_the_copy_moves():
     assert transfer_probe.copy_bytes(8, 32768) == (1 + 32768) * 512  # the broadcast reads one row
 
 
-@pytest.mark.parametrize("script", [transfer_probe, hw_probe, emu_calibrate], ids=lambda m: m.__name__.rsplit(".")[-1])
+@pytest.mark.parametrize(
+    "script", [transfer_probe, hw_probe, emu_calibrate, match_time, match_variants],
+    ids=lambda m: m.__name__.rsplit(".")[-1],
+)
 def test_scripts_refuse_without_a_gpu_and_write_nothing(script, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(common, "OUT_DIR", tmp_path / "probes")
