@@ -28,7 +28,6 @@ import subprocess
 from pim_compression_tpu_torch.ops import _build
 from pim_compression_tpu_torch.scripts import common, match_time
 
-OUT = _build.BUILD_DIR.parent / "match_variants"
 # name -> {constant: value}. kHeld ranges over [kSteps / 2, kSteps], kSteps = 32768 / kMaxThreads.
 VARIANTS = {
     "1024-threads-32-held": {"kHeld": 32},
@@ -38,35 +37,39 @@ VARIANTS = {
 }
 
 
-def build_variants(variants: dict) -> dict:
-    """name -> (the loaded library, ptxas's lines on the match kernel) of
-    each variant, compiled all at once, one nvcc each."""
+def build_variants(variants: dict, source: str = "match.cu") -> dict:
+    """name -> (the loaded library, ptxas's lines on the kernel) of each
+    variant of ``csrc/<source>`` (whose kernel is ``<stem>_blocks_kernel``
+    and whose C entry is ``pim_<stem>_blocks``), compiled all at once into
+    ``build/<stem>_variants/<name>/``, one nvcc each."""
     import ctypes
 
+    stem = source.split(".")[0]
+    entry = f"pim_{stem}_blocks"
     commands, libs = [], {}
     for name, consts in variants.items():
-        src = (_build.CSRC_DIR / "match.cu").read_text()
+        src = (_build.CSRC_DIR / source).read_text()
         for const, value in consts.items():
             src, n = re.subn(rf"constexpr int {const} = [^;]+;", f"constexpr int {const} = {value};", src)
             if n != 1:
-                raise ValueError(f"match.cu has no one constant {const}")
-        out = OUT / name
+                raise ValueError(f"{source} has no one constant {const}")
+        out = _build.BUILD_DIR.parent / f"{stem}_variants" / name
         out.mkdir(parents=True, exist_ok=True)
         shutil.copy(_build.CSRC_DIR / "staging.cuh", out / "staging.cuh")
-        (out / "match.cu").write_text(src)
-        libs[name] = out / "libmatch.so"
-        commands.append([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(libs[name]), str(out / "match.cu")])
+        (out / source).write_text(src)
+        libs[name] = out / f"lib{stem}.so"
+        commands.append([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(libs[name]), str(out / source)])
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in commands]
-    typed = _build.load().pim_match_blocks
+    typed = getattr(_build.load(), entry)
     built = {}
     for (name, lib), proc in zip(libs.items(), procs):
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         lines = log.splitlines()
-        at = next(i for i, line in enumerate(lines) if "match_blocks_kernel" in line and "Compiling" in line)
+        at = next(i for i, line in enumerate(lines) if f"{stem}_blocks_kernel" in line and "Compiling" in line)
         handle = ctypes.CDLL(str(lib))
-        handle.pim_match_blocks.restype, handle.pim_match_blocks.argtypes = typed.restype, typed.argtypes
+        getattr(handle, entry).restype, getattr(handle, entry).argtypes = typed.restype, typed.argtypes
         built[name] = handle, " | ".join(line.strip() for line in lines[at + 1 : at + 4])
     return built
 

@@ -106,6 +106,42 @@ def hand_plain_blocks(block_size: int, seed: int = 0, far_lag: int = 8193) -> tu
     return np.stack(rows), np.array(lens, dtype=np.int32)
 
 
+def synthetic_matches(block_size: int, seed: int = 0) -> tuple[np.ndarray, ...]:
+    """Matcher-shaped inputs for checking the emit alone: (blocks uint8[7,
+    block_size], lens int32[7], mlen uint8[7, block_size], mlag int16[7,
+    block_size]). Random bytes; lengths in {0} u [4, 64] at densities from
+    sparse (literal runs of thousands of bytes) to dense, with a row of
+    64-byte copies from every 64th position; lags over all 16 bits (an
+    int16's bits, read unsigned); one ``lens`` of 0, others below
+    ``block_size`` with lengths and bytes past them, and each row's last
+    position reached by a literal stretch with length 4 there, so that the
+    lazy-1 lookahead past ``lens`` (length 5) and at ``block_size`` (the
+    next row's first length, 64) decides its output. 7 rows: not a
+    multiple of a few warps."""
+    rng = np.random.default_rng(seed)
+    nb = 7
+    blocks = rng.integers(0, 256, (nb, block_size), dtype=np.uint8)
+    density = np.array([0.0005, 0.004, 0.05, 0.3, 0.6, 0.9, 0.2])[:, None]
+    mlen = np.where(rng.random((nb, block_size)) < density, rng.integers(4, 65, (nb, block_size)), 0)
+    mlen = mlen.astype(np.uint8)
+    mlen[5, ::64] = 64
+    mlag = rng.integers(0, 1 << 16, (nb, block_size)).astype(np.uint16).view(np.int16)
+    lens = np.array([block_size, block_size - 1, block_size - 37, 0, block_size, block_size,
+                     max(1, block_size // 3 - 1)], np.int32)
+    # Each row's last position takes length 4 after a literal stretch, so
+    # the walk reaches it and its lazy-1 lookahead decides the output: past
+    # lens a length of 5 defers it; at block_size the next row's first
+    # length (64) must read as 0.
+    for b in (0, 1, 2, 6):
+        n = int(lens[b])
+        mlen[b, max(0, n - 70) : n - 1] = 0
+        mlen[b, n - 1] = 4
+        if n < block_size:
+            mlen[b, n] = 5
+    mlen[1, 0] = 64
+    return blocks, lens, mlen, mlag
+
+
 def sweep_edge_blocks(block_size: int, window: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """Edge cases for the sweep matcher, as ``plain_blocks`` returns them:
     random blocks with a 100-byte repeat at lag 1 (a byte run), at lag

@@ -186,8 +186,30 @@ def test_cuda_encode_wrappers_reject_bad_tensors(cuda_device):
     with pytest.raises(ValueError):  # mixed devices
         hopper_match.match_blocks(blocks, lens.cpu())
     mlen, mlag = hopper_match.match_blocks(blocks, lens)
-    with pytest.raises(ValueError):  # output staging past shared memory
-        hopper_encode.emit_blocks(blocks, lens, mlen, mlag, 250000)
+    # A cap far past the block: the emit stages a window and a ring of its
+    # own size, so no cap is refused for shared memory.
+    comp, sizes = hopper_encode.emit_blocks(blocks, lens, mlen, mlag, 250000)
+    want_comp, want_sizes = hopper_encode.emit_blocks_torch(blocks, lens, mlen, mlag, 250000)
+    assert torch.equal(sizes, want_sizes) and torch.equal(comp, want_comp)
+
+
+@pytest.mark.parametrize("block_size", [256, 8192, 32768, 65536])
+@pytest.mark.parametrize("odd_cap", [False, True], ids=["cap16", "odd-cap"])
+def test_cuda_emit_kernel_on_synthetic_matches(cuda_device, block_size, odd_cap):
+    # Literal runs longer than the kernel's window, 64-byte copies across
+    # its refill margin, lags from 32768 up, lengths past lens, an empty
+    # block, 7 blocks (not a whole CTA of warps), and a cap below the larger
+    # sizes: 16-byte stores, or bytes at a cap that is not a multiple of 16.
+    arrays = streams.synthetic_matches(block_size, block_size * 2 + odd_cap)
+    blocks, lens, mlen, mlag = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    cap = block_size // 2 + (5 if odd_cap else 16)
+    launches = hopper_encode.LAUNCHES
+    comp, sizes = hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap)
+    torch.cuda.synchronize()
+    assert hopper_encode.LAUNCHES == launches + 1
+    want_comp, want_sizes = hopper_encode.emit_blocks_torch(blocks, lens, mlen, mlag, cap)
+    assert (want_sizes > cap).any() and int(want_sizes[3]) == 0
+    assert torch.equal(sizes, want_sizes) and torch.equal(comp, want_comp)
 
 
 def test_cuda_engine_compress_round_trip(cuda_device):
