@@ -6,13 +6,17 @@ at 32 KB and at 64 KB blocks, through the runtime and through the CLI.
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: a CUDA device must be present; prints the card and its power limit;
-  2. build: compiles the kernels in pim_compression_tpu_torch/csrc with nvcc;
+  2. build: compiles the kernels in pim_compression_tpu_torch/csrc with nvcc,
+     and logs the decode kernel's walks per SM (its occupancy query) at bs
+     32768 and 65536;
   3. kernel vs plain: the Hopper decode kernel and the plain PyTorch decode
      on the same CUDA tensors (hand-built blocks, a 128-block batch at 32 KB,
      blocks at 4 KB and 24 KB, malformed mutants; at 64 KB 128 blocks of the
      payload with a block whose copies reach past 32768, hand-built blocks and
-     mutants in one batch, and blocks at 40 KB): equal verdicts on every
-     block, equal bytes on every valid block (exact: the codec is integer-only);
+     mutants in one batch, and blocks at 40 KB; blocks and mutants at 100,
+     1000 and 4097, sizes that are not multiples of 16): equal verdicts on
+     every block, equal bytes on every valid block (exact: the codec is
+     integer-only);
   4. main path: a ~36 MB text-like payload (1100 blocks of 32 KB: a full
      1024-block batch, a tail batch, a partial last block) compressed by the
      native host codec and decompressed through runtime.decompress on the
@@ -76,7 +80,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      elementwise chains, the copy, the mix rounds and the chain fold) against
      its plain PyTorch version on the same CUDA tensors, exactly, at every
      shape of the JAX package's probe scripts of at most 50,000 steps (the
-     1M- and 1.6M-step chains are timed only); then, with the launch counts
+     1M- and 1.6M-step chains are timed only), the copy also in turns with
+     its library call x[:rows] + 1 on the same cold inputs (COPY_ROUNDS
+     rounds of 20 launches each); then, with the launch counts
      set to 0, the port's three probe scripts (transfer_probe, hw_probe,
      emu_calibrate) through their run(), which must launch every probe
      kernel; their records are printed;
@@ -111,6 +117,7 @@ import time
 BS = 32768
 WIDE_BS = 65536
 SWEEP_BS = 8192
+ODD_SIZES = (100, 1000, 4097)  # decode block sizes outside the encoder's envelope (phase 3)
 MAIN_BLOCKS = 1100
 SEED = 20261016
 RANDOM_BLOCKS = (3, 100, 333, 512, 777, 1023, 1024, 1090)  # spliced into the compress payloads
@@ -137,6 +144,7 @@ SORT_MODES = {
 # copy at its largest, the mix rounds at their longest, the chain fold at its
 # largest point a plain version is compared at.
 PROBE_COPY = (32768, 32768)
+COPY_ROUNDS = 10  # rounds of the copy kernel and its library call in turns (phase 15)
 PROBE_MIX_ITERS = 8000
 PROBE_CHAIN = (8192, 50_000)
 # Runs the CLI as `python -m pim_compression_tpu_torch` does, then prints
@@ -681,10 +689,20 @@ def probes_phase(device) -> dict:
                            (xs[0], out_rows), 20, [(x, out_rows) for x in xs])
         if (in_rows, out_rows) == PROBE_COPY:
             st["bound"] = bound(transfer_probe.copy_bytes(in_rows, out_rows), 0)
-            turn, kept = itertools.cycle(xs), []  # the one PyTorch call of the same function
-            st["library_ms"] = common.event_seconds(lambda: kept.append(next(turn)[:out_rows] + 1), 20) * 1e3
-            del kept
-            log(f"  library call x[:{out_rows}] + 1: {st['library_ms']:.4f} ms")
+            # The kernel and the one PyTorch call of the same function, x[:rows]
+            # + 1, in turns in one loop on the same cold inputs; each round
+            # times 20 queued launches of each.
+            turn, kept, rounds = itertools.cycle(xs), [], {"kernel": [], "library": []}
+            for _ in range(COPY_ROUNDS):
+                for side, fn in (("kernel", lambda: hp.copy_rows(next(turn), out_rows)),
+                                 ("library", lambda: next(turn)[:out_rows] + 1)):
+                    rounds[side].append(common.event_seconds(lambda: kept.append(fn()), 20) * 1e3)
+                    kept.clear()
+            st["ms"], st["library_ms"] = (sum(r) / len(r) for r in (rounds["kernel"], rounds["library"]))
+            st["rounds_ms"] = rounds
+            for side, r in rounds.items():
+                log(f"  copy_rows in turns, {side}: mean {sum(r) / len(r):.4f} ms, "
+                    f"{min(r):.4f}-{max(r):.4f} over {len(r)} rounds")
             stats["copy_rows"] = st
     for rows, iters in transfer_probe.COMPUTE:
         x = int32(rows)
@@ -780,6 +798,13 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
+    # The decode kernel's residency: one block a warp, and its shared memory
+    # does not depend on the block size or cap, so one query serves every size.
+    walks = hopper_decode.walks_per_sm(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    log(f"  decode: {walks} walks per SM at every block size (bs {BS} and {WIDE_BS} alike: its shared memory "
+        f"does not depend on block_size or cap), {walks * sms} on {sms} SMs, so a 1024-block batch is "
+        f"{-(-1024 // (walks * sms))} wave(s)")
 
     # 3. Decode kernel against the plain version.
     if not native.available():
@@ -809,6 +834,19 @@ def main() -> int:
             base = streams.hand_blocks(bs) + blocks[:64]
             muts = streams.block_mutants(base, random.Random(SEED), 48, bs)
             stats.append(compare("mutants-4096", to_device(muts, bs, device), bs))
+    # Block sizes outside the encoder's envelope, not multiples of 16 (the
+    # kernel's byte-wise row writes): 64 blocks of the payload, the
+    # hand-built blocks that fit, and mutants (the plain decode takes a few
+    # seconds a batch here, most of it at 4097, whose hand-built blocks hold
+    # a 4096-byte literal).
+    for bs in ODD_SIZES:
+        sub = payload[: 64 * bs - bs // 3]
+        odd_hand = [blk for blk in streams.hand_blocks(bs) if blk[1] <= bs]
+        base = odd_hand + stream_blocks(native.compress(sub, bs))
+        want = [oracle.decompress(streams.frame_block(p, n, bs)) for p, n in odd_hand]
+        want += [sub[i * bs : (i + 1) * bs] for i in range(len(base) - len(odd_hand))]
+        muts = streams.block_mutants(base, random.Random(SEED + bs), 32, bs)
+        stats.append(compare(f"bs-{bs}-and-mutants", to_device(base + muts, bs, device), bs, want))
     muts = streams.block_mutants(hand + main_blocks[:16], random.Random(SEED + 1), 48, BS)
     stats.append(compare("mutants-32768", to_device(muts, BS, device), BS))
     # 64 KB: the plain decode's time follows the longest payload, so one
@@ -1042,6 +1080,7 @@ def main() -> int:
              "pim_compression_tpu/ops/pallas_decode.py:620"],
             {str(BS): dec["launches"], str(WIDE_BS): wide_dec["launches"], **cli_launches("decode")},
             max(st["max_abs_err"] for st in stats), wide_stats["ms"], wide_stats["plain_ms"], wide_stats["bound"],
+            walks_per_sm=walks,
         ),
         entry(
             "match_blocks", "match.cu",

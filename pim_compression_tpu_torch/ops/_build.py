@@ -102,6 +102,8 @@ def load() -> ctypes.CDLL:
             i32, i32, i32, i32,  # num_blocks, cap, block_size, device
             ptr,  # stream
         ]
+        lib.pim_decode_walks_per_sm.restype = i32
+        lib.pim_decode_walks_per_sm.argtypes = [i32]  # device
         lib.pim_match_blocks.restype = i32
         lib.pim_match_blocks.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, near, first_half

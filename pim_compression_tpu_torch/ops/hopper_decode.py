@@ -28,7 +28,6 @@ ERR_ROUTE_CONFLICT = 8
 ERR_UNRESOLVED = 16
 
 MAX_BLOCK_SIZE = 65536  # the format's largest block
-MAX_SHARED_BYTES = 232448  # per-CTA shared memory on sm_90 (cap + block_size)
 
 # DFA modes (lane_model.TAG/EXT/LIT/OFF).
 _TAG, _EXT, _LIT, _OFF = 0, 1, 2, 3
@@ -203,9 +202,6 @@ def decode_blocks(
     if not (comp.is_contiguous() and comp_len.is_contiguous() and out_len.is_contiguous()):
         raise ValueError("decode_blocks needs contiguous tensors")
     nb, cap = comp.shape
-    smem = -(-block_size // 16) * 16 + -(-cap // 16) * 16
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"cap {cap} + block_size {block_size} exceed shared memory")
     out = torch.empty((nb, block_size), dtype=torch.uint8, device=comp.device)
     err = torch.empty(nb, dtype=torch.int32, device=comp.device)
     if nb == 0:
@@ -221,3 +217,17 @@ def decode_blocks(
         raise RuntimeError(f"decode kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return out, err
+
+
+def walks_per_sm(device=None) -> int:
+    """Blocks the decode kernel walks at once on one SM of a CUDA device:
+    the CTAs that fit (CUDA's occupancy query) times the warps of a CTA,
+    one block a warp. Its shared memory does not depend on the block size
+    or cap, so neither does this."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"walks_per_sm needs a CUDA device, not {dev}")
+    walks = _build.load().pim_decode_walks_per_sm(dev.index if dev.index is not None else torch.cuda.current_device())
+    if walks <= 0:
+        raise RuntimeError(f"decode kernel occupancy query failed: CUDA error {-walks}")
+    return walks

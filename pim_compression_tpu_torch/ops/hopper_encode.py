@@ -74,7 +74,7 @@ def encode_knobs(config, notes: dict | None = None) -> dict:
         except ValueError as e:
             gap = f"matcher 'sweep' at block_size {bs}: {e} (the sweep envelope"
             if bs > hopper_sweep.MAX_SWEEP_BLOCK:
-                gap += "; the reference falls back to its xla engine there, not ported, ROADMAP A item 6"
+                gap += "; the reference falls back to its xla engine there, not ported, ROADMAP §A, the portable engine"
             gap += ")"
     else:
         rungs = tuple(config.rungs or hopper_match.RUNGS)

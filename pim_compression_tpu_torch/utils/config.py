@@ -222,7 +222,7 @@ class TorchCodecConfig:
     # Device-batch pipelining: up to this many batches in flight; h2d+kernel
     # of batch i+1 overlap d2h of batch i. <=1 = fully synchronous batches
     # (exact per-phase timing attribution, the reference's phase taxonomy).
-    # The port ignores it: batches run one after another (ROADMAP A item 5).
+    # The port ignores it: batches run one after another (ROADMAP §A, batch pipelining).
     pipeline_depth: int = 2
     # When True, engine="pallas" raises instead of silently falling back to
     # the xla kernels for block sizes beyond the pallas envelope.
@@ -231,7 +231,7 @@ class TorchCodecConfig:
     # Devices in the 1-D block mesh (None = all local devices). The scaling
     # sweep's analog of the reference's NR_DPUS axis
     # (snappy/scripts/asplos21/dpu_tasklet_tradeoff.py:10).
-    # The port ignores it: it runs on one device (ROADMAP A item 8).
+    # The port ignores it: it runs on one device (ROADMAP §A, devices and processes).
     mesh_devices: int | None = None
     # The port's device: a torch.device or device string; None means cuda:0
     # for the "cuda" engine and the CPU for "torch". Host engines ignore it.
@@ -310,12 +310,12 @@ class TorchCodecConfig:
 
         Raises ``ValueError`` for the reference's ``xla`` engine: the port
         has nothing that emits its stream until the portable engine is
-        ported (ROADMAP A item 6).
+        ported (ROADMAP §A, the portable engine).
         """
         if cfg.engine not in _FROM_REFERENCE_ENGINE:
             raise ValueError(
                 f"the reference's {cfg.engine!r} engine is not ported yet "
-                "(the portable engine, ROADMAP A item 6)"
+                "(ROADMAP §A, the portable engine)"
             )
         names = [f.name for f in dataclasses.fields(cls) if f.name not in ("engine", "device")]
         fields = {name: getattr(cfg, name) for name in names}

@@ -65,10 +65,13 @@ def _on_device(blocks, block_size, device):
     return tuple(torch.from_numpy(a).to(device) for a in (comp, clen, olen))
 
 
-@pytest.mark.parametrize("block_size", [256, 4096, 24576, 65536])
+# 100, 1000 and 4097: outside the encoder's envelope, not multiples of 16
+# (the kernel's byte-wise row writes); the plain version takes a few seconds
+# a batch at these sizes.
+@pytest.mark.parametrize("block_size", [100, 256, 1000, 4096, 4097, 24576, 65536])
 def test_cuda_kernel_matches_plain_version(cuda_device, block_size):
     stream = _compress(streams.text_payload(6 * block_size + 99, block_size), block_size)
-    base = streams.hand_blocks(block_size) + _blocks(stream)
+    base = [blk for blk in streams.hand_blocks(block_size) if blk[1] <= block_size] + _blocks(stream)
     if block_size > 32768:  # copies at offsets above 32768
         base += _blocks(_compress(streams.far_repeat_block(block_size, 1), block_size))
     blocks = base + streams.block_mutants(base, random.Random(block_size), 48, block_size)
@@ -110,10 +113,44 @@ def test_cuda_kernel_rejects_bad_tensors(cuda_device):
         hopper_decode.decode_blocks(comp[:, ::2], lens, lens, block_size=256)
     with pytest.raises(ValueError):  # mixed devices
         hopper_decode.decode_blocks(comp, lens.cpu(), lens, block_size=256)
-    big = torch.zeros((1, 200000), dtype=torch.uint8, device=cuda_device)
-    one = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):  # payload + block exceed shared memory
-        hopper_decode.decode_blocks(big, one, one, block_size=32768)
+    # A cap far past the block (and one not a multiple of 16, so the window
+    # is staged by byte loads): the kernel's shared memory does not depend
+    # on the cap, so none is refused.
+    blocks = streams.hand_blocks(32768)[:8]
+    for cap in (200000, 200001):
+        comp = torch.zeros((len(blocks), cap), dtype=torch.uint8)
+        for i, (payload, _) in enumerate(blocks):
+            comp[i, : len(payload)] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+        clen = torch.tensor([len(p) for p, _ in blocks], dtype=torch.int32)
+        olen = torch.tensor([n for _, n in blocks], dtype=torch.int32)
+        args = tuple(t.to(cuda_device) for t in (comp, clen, olen))
+        out, err = hopper_decode.decode_blocks(*args, block_size=32768)
+        want_out, want_err = hopper_decode.decode_blocks_torch(*args, 32768)
+        assert not err.any() and torch.equal(err != 0, want_err != 0)
+        assert torch.equal(out, want_out)
+
+
+@pytest.mark.parametrize("block_size, blocks, n", [(1024, 3, 100), (4096, 2, 24)])
+def test_cuda_engine_verdicts_on_fuzzed_streams(cuda_device, block_size, blocks, n):
+    # The whole-stream mutants of test_fuzz_malformed (header-biased bit
+    # flips, truncations, stomps, garbage tails): the cuda engine gives the
+    # torch engine's verdict on each, and its bytes where both decode.
+    from pim_compression_tpu_torch.utils.errors import SnappyError
+    from test_fuzz_malformed import _mutants
+
+    stream = _compress(streams.text_payload(blocks * block_size - block_size // 3, block_size), block_size)
+    engines = {name: TorchCodecConfig(engine=name, device=dev, validate=True)
+               for name, dev in (("cuda", "cuda:0"), ("torch", "cpu"))}
+    launches = hopper_decode.LAUNCHES
+    for m in _mutants(stream, random.Random(0xF2 + block_size), n):
+        got = {}
+        for name, cfg in engines.items():
+            try:
+                got[name] = bytes(runtime.decompress(m, cfg))
+            except (SnappyError, ValueError, OverflowError):
+                got[name] = None
+        assert got["cuda"] == got["torch"]
+    assert hopper_decode.LAUNCHES > launches
 
 
 def test_cuda_engine_round_trip(cuda_device):

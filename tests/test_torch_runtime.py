@@ -72,7 +72,7 @@ def test_config_defaults_and_engines():
 def test_config_from_reference(ref_engine, engine):
     ref = CodecConfig(engine=ref_engine, block_size=8192, batch_blocks=64, validate=False, max_lag=4096)
     if engine is None:  # the xla engine's stream has no port yet
-        with pytest.raises(ValueError, match="ROADMAP A item 6"):
+        with pytest.raises(ValueError, match="ROADMAP §A, the portable engine"):
             TorchCodecConfig.from_reference(ref, device="cpu")
         return
     cfg = TorchCodecConfig.from_reference(ref, device="cpu")
