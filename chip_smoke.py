@@ -55,8 +55,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      version on the same CUDA tensors (128 blocks of the payload at bs 8192
      with match_window 2048 and coarse_window 8192, sampled and granular, and
      with 512/4096 granular; 128 blocks at bs 16384, 512/16384 granular; the
-     sweep's hand-built edge blocks; a full 1024-block batch of the main
-     config): every length and lag equal (exact);
+     sweep's hand-built edge blocks; the table walk's hard blocks with the
+     edge blocks, the 512/4096 and the 16384 batches; a full 1024-block batch
+     of the main config): every length and lag equal (exact);
  12. sweep main path: the phase-4 payload cut to 1100 blocks of 8 KB, with 8
      random blocks spliced in, compressed through runtime.compress on the
      "cuda" engine with the sweep (2048/8192, granular), checked as in phase 7
@@ -210,55 +211,6 @@ def reset_counts() -> None:
     hopper_probes.LAUNCHES.update(dict.fromkeys(hopper_probes.LAUNCHES, 0))
 
 
-def sweep_pairs(blocks, lens, mlen, mlag, window: int, coarse_window: int, granular: bool) -> tuple[int, int]:
-    """(visited, first_word): the (position, lag) pairs the exhaustive sweep
-    visits on these inputs, and those of them whose first 4-byte words are
-    equal, the pairs that a per-block table of word occurrences would still
-    have to visit. At every position with 4 bytes left the sweep visits the
-    fine lags 1..min(window, p), then the coarse lags (every 8th in (window,
-    min(coarse, p)] sampled; every one at 8-aligned positions with 8 bytes
-    left, granular), in that order up to the first lag that gives the longest
-    bucket the position's remaining length allows (the exact early exit).
-    Computed from the inputs and the matcher's output."""
-    import torch
-
-    nb, bs = mlen.shape
-    p = torch.arange(bs, device=mlen.device, dtype=torch.int64)[None, :].expand(nb, bs)
-    room = lens[:, None].long() - p
-    maxk = (room >> 2).clamp(0, 16)
-    top = torch.zeros_like(maxk)
-    for words, length in ((1, 4), (2, 8), (4, 16), (8, 32), (16, 64)):
-        top = torch.where(maxk >= words, length, top)
-    fine = p.clamp(max=window)
-    coarse = coarse_window > window
-    reach = (p.clamp(max=coarse_window) - window).clamp(min=0) if coarse else torch.zeros_like(p)
-    in_granule = (p % 8 == 0) & (room >= 8)
-    if granular:
-        step, extra = 1, torch.where(in_granule, reach, 0)
-    else:
-        step, extra = 8, reach // 8
-    lag, length = mlag.long(), mlen.long()
-    done = (length > 0) & (length == top)
-    stop = torch.where(lag <= window, lag, fine + (lag - window) // step)
-    visited = int(torch.where(room >= 4, torch.where(done, stop, fine + extra), 0).sum())
-
-    data = torch.nn.functional.pad(torch.where(room > 0, blocks, 0).long(), (0, 3))
-    word = data[:, :bs] | data[:, 1 : bs + 1] << 8 | data[:, 2 : bs + 2] << 16 | data[:, 3 : bs + 3] << 24
-    last = torch.where(done, lag, bs)  # the last lag a position visits
-    fits = room >= 4
-    lags = [(d, fits) for d in range(1, min(window, bs - 1) + 1)]
-    if coarse:
-        top_lag = min(coarse_window, bs - 1)
-        if granular:
-            lags += [(d, in_granule) for d in range(window + 1, top_lag + 1)]
-        else:
-            lags += [(d, fits) for d in range(window + 8, top_lag + 1, 8)]
-    first_word = torch.zeros((), dtype=torch.int64, device=mlen.device)
-    for d, at in lags:
-        first_word += ((word[:, d:] == word[:, :-d]) & at[:, d:] & (last[:, d:] >= d)).sum()
-    return visited, int(first_word)
-
-
 def to_device(blocks, block_size, device):
     """(payload, out_len) pairs -> comp/comp_len/out_len tensors on device."""
     import numpy as np
@@ -382,7 +334,7 @@ def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
     match_bytes = 4 * nb * bs + 4 * nb
     extra = {}
     if sweep:
-        visited, first_word = sweep_pairs(blocks, lens, mlen, mlag, **knobs)
+        visited, first_word = hopper_sweep.sweep_pairs(blocks, lens, mlen, mlag, **knobs)
         match_ops = nb * bs + first_word
         extra = {"visited_pairs": visited, "first_word_pairs": first_word,
                  "visited_bound": bound(match_bytes, visited)}
@@ -805,6 +757,9 @@ def main() -> int:
     log(f"  decode: {walks} walks per SM at every block size (bs {BS} and {WIDE_BS} alike: its shared memory "
         f"does not depend on block_size or cap), {walks * sms} on {sms} SMs, so a 1024-block batch is "
         f"{-(-1024 // (walks * sms))} wave(s)")
+    # The sweep kernel's residency: one CTA a block, its shared memory grows with the block size.
+    sweep_ctas = {bs: hopper_sweep.ctas_per_sm(bs, device) for bs in (SWEEP_BS, 16384)}
+    log(f"  sweep: {sweep_ctas[SWEEP_BS]} CTAs (blocks) per SM at bs {SWEEP_BS}, {sweep_ctas[16384]} at 16384")
 
     # 3. Decode kernel against the plain version.
     if not native.available():
@@ -966,16 +921,25 @@ def main() -> int:
     sweep_full = np.frombuffer(sweep_payload[: 1024 * SWEEP_BS], np.uint8).reshape(-1, SWEEP_BS).copy()
     sweep_lens = np.full(len(sweep_full), SWEEP_BS, np.int32)
     big_full = np.frombuffer(payload[: 128 * 16384], np.uint8).reshape(128, 16384).copy()
+    # The table walk's hard blocks (one word repeated, zeros, a word at every
+    # 8-aligned position, two letters, key collisions) join the edge blocks,
+    # the w512 batch and the 16384 batch.
+    hard = streams.sweep_hard_blocks(SWEEP_BS, 2048, SEED)
+    hard512 = streams.sweep_hard_blocks(SWEEP_BS, 512, SEED + 1)
+    hard_big = streams.sweep_hard_blocks(16384, 512, SEED + 2)
+    edge = streams.sweep_edge_blocks(SWEEP_BS, 2048, SEED)
     sweep_cases = [
         ("w2048-c8192-sampled", sweep_full[:128], sweep_lens[:128], dict(SWEEP_MAIN, coarse_mode="sampled")),
         ("w2048-c8192-granular", sweep_full[:128], sweep_lens[:128], SWEEP_MAIN),
-        ("w512-c4096-granular", sweep_full[:128], sweep_lens[:128], dict(SWEEP_MAIN, match_window=512, coarse_window=4096)),
-        ("bs-16384-w512-c16384-granular", big_full, np.full(128, 16384, np.int32),
+        ("w512-c4096-granular-and-hard-blocks", np.concatenate([sweep_full[:128], hard512[0]]),
+         np.concatenate([sweep_lens[:128], hard512[1]]), dict(SWEEP_MAIN, match_window=512, coarse_window=4096)),
+        ("bs-16384-w512-c16384-granular-and-hard-blocks", np.concatenate([big_full, hard_big[0]]),
+         np.concatenate([np.full(128, 16384, np.int32), hard_big[1]]),
          dict(SWEEP_MAIN, match_window=512, coarse_window=16384)),
     ]
     for mode in ("sampled", "granular"):
-        edge = streams.sweep_edge_blocks(SWEEP_BS, 2048, SEED)
-        sweep_cases.append((f"edge-blocks-{mode}", *edge, dict(SWEEP_MAIN, coarse_mode=mode)))
+        sweep_cases.append((f"edge-and-hard-blocks-{mode}", np.concatenate([edge[0], hard[0]]),
+                            np.concatenate([edge[1], hard[1]]), dict(SWEEP_MAIN, coarse_mode=mode)))
     sweep_stats = []
     for name, blocks, lens, knobs in sweep_cases:
         knobs = hopper_encode.encode_knobs(TorchCodecConfig(block_size=blocks.shape[1], **knobs))
@@ -1106,7 +1070,7 @@ def main() -> int:
             max(st["match_err"] for st in sweep_stats), sweep_batch["match_ms"], sweep_batch["match_plain_ms"],
             sweep_batch["match_bound"], visited_pairs=sweep_batch["visited_pairs"],
             first_word_pairs=sweep_batch["first_word_pairs"],
-            visited_bound_ms=sweep_batch["visited_bound"]["bound_ms"],
+            visited_bound_ms=sweep_batch["visited_bound"]["bound_ms"], ctas_per_sm=sweep_ctas,
         ),
         probe_entry("gather_chain", "scripts/hw_probe.py:120", f"(128, 128) x {gather_steps}"),
         probe_entry("ew_chain", "scripts/hw_probe.py:159", f"(128, 128) x {gather_steps}"),

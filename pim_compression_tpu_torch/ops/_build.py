@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
             i32, i32, i32, i32, i32,  # num_blocks, block_size, window, coarse, granular
             i32, ptr,  # device, stream
         ]
+        lib.pim_sweep_ctas_per_sm.restype = i32
+        lib.pim_sweep_ctas_per_sm.argtypes = [i32, i32]  # block_size, device
         lib.pim_emit_blocks.restype = i32
         lib.pim_emit_blocks.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, comp, sizes

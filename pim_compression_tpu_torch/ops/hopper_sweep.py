@@ -164,6 +164,55 @@ def sweep_match_torch(
     return mlen.to(torch.uint8), mlag.to(torch.int16)
 
 
+def sweep_pairs(blocks, lens, mlen, mlag, window: int, coarse_window: int, granular: bool) -> tuple[int, int]:
+    """(visited, first_word): the (position, lag) pairs an exhaustive sweep
+    visits on these inputs, and those of them whose first 4-byte words are
+    equal, which every matcher has to measure; ``chip_smoke.py`` and
+    ``scripts/sweep_time.py`` count a sweep's operations (its bound) with
+    them, the codec never calls this. At every position with 4 bytes left the
+    sweep visits the fine lags 1..min(window, p), then the coarse lags (every
+    8th in (window, min(coarse, p)] sampled; every one at 8-aligned positions
+    with 8 bytes left, granular), in that order up to the first lag that
+    gives the longest bucket the position's remaining length allows (the
+    exact early exit). Computed from the inputs and the matcher's output, on
+    their device."""
+    nb, bs = mlen.shape
+    p = torch.arange(bs, device=mlen.device, dtype=torch.int64)[None, :].expand(nb, bs)
+    room = lens[:, None].long() - p
+    maxk = (room >> 2).clamp(0, 16)
+    top = torch.zeros_like(maxk)
+    for words, length in ((1, 4), (2, 8), (4, 16), (8, 32), (16, 64)):
+        top = torch.where(maxk >= words, length, top)
+    fine = p.clamp(max=window)
+    coarse = coarse_window > window
+    reach = (p.clamp(max=coarse_window) - window).clamp(min=0) if coarse else torch.zeros_like(p)
+    in_granule = (p % 8 == 0) & (room >= 8)
+    if granular:
+        step, extra = 1, torch.where(in_granule, reach, 0)
+    else:
+        step, extra = 8, reach // 8
+    lag, length = mlag.long(), mlen.long()
+    done = (length > 0) & (length == top)
+    stop = torch.where(lag <= window, lag, fine + (lag - window) // step)
+    visited = int(torch.where(room >= 4, torch.where(done, stop, fine + extra), 0).sum())
+
+    data = torch.nn.functional.pad(torch.where(room > 0, blocks, 0).long(), (0, 3))
+    word = data[:, :bs] | data[:, 1 : bs + 1] << 8 | data[:, 2 : bs + 2] << 16 | data[:, 3 : bs + 3] << 24
+    last = torch.where(done, lag, bs)  # the last lag a position visits
+    fits = room >= 4
+    lags = [(d, fits) for d in range(1, min(window, bs - 1) + 1)]
+    if coarse:
+        top_lag = min(coarse_window, bs - 1)
+        if granular:
+            lags += [(d, in_granule) for d in range(window + 1, top_lag + 1)]
+        else:
+            lags += [(d, fits) for d in range(window + 8, top_lag + 1, 8)]
+    first_word = torch.zeros((), dtype=torch.int64, device=mlen.device)
+    for d, at in lags:
+        first_word += ((word[:, d:] == word[:, :-d]) & at[:, d:] & (last[:, d:] >= d)).sum()
+    return visited, int(first_word)
+
+
 def sweep_match(
     blocks: torch.Tensor, lens: torch.Tensor, *, window: int = 512, coarse_window: int = 0,
     granular: bool = False,
@@ -200,3 +249,17 @@ def sweep_match(
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return mlen, mlag
+
+
+def ctas_per_sm(block_size: int, device=None) -> int:
+    """CTAs of the sweep kernel (one block each) that fit on one SM of a
+    CUDA device at ``block_size``: CUDA's occupancy query on the kernel's
+    shared memory, which grows with the block size."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"ctas_per_sm needs a CUDA device, not {dev}")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    ctas = _build.load().pim_sweep_ctas_per_sm(block_size, index)
+    if ctas <= 0:
+        raise RuntimeError(f"sweep kernel occupancy query failed: CUDA error {-ctas}")
+    return ctas

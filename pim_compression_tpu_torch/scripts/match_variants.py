@@ -21,6 +21,7 @@ beside the variants'. Writes
 from __future__ import annotations
 
 import json
+import pathlib
 import re
 import shutil
 import subprocess
@@ -37,25 +38,29 @@ VARIANTS = {
 }
 
 
-def build_variants(variants: dict, source: str = "match.cu") -> dict:
+def build_variants(variants: dict, source: str = "match.cu", csrc=None) -> dict:
     """name -> (the loaded library, ptxas's lines on the kernel) of each
     variant of ``csrc/<source>`` (whose kernel is ``<stem>_blocks_kernel``
     and whose C entry is ``pim_<stem>_blocks``), compiled all at once into
-    ``build/<stem>_variants/<name>/``, one nvcc each."""
+    ``build/<stem>_variants/<name>/``, one nvcc each. ``csrc`` is the
+    directory of the sources (default: this checkout's ``csrc/``), so
+    another checkout's kernel builds the same way."""
     import ctypes
 
+    csrc = _build.CSRC_DIR if csrc is None else pathlib.Path(csrc)
     stem = source.split(".")[0]
     entry = f"pim_{stem}_blocks"
     commands, libs = [], {}
     for name, consts in variants.items():
-        src = (_build.CSRC_DIR / source).read_text()
+        src = (csrc / source).read_text()
         for const, value in consts.items():
             src, n = re.subn(rf"constexpr int {const} = [^;]+;", f"constexpr int {const} = {value};", src)
             if n != 1:
                 raise ValueError(f"{source} has no one constant {const}")
         out = _build.BUILD_DIR.parent / f"{stem}_variants" / name
         out.mkdir(parents=True, exist_ok=True)
-        shutil.copy(_build.CSRC_DIR / "staging.cuh", out / "staging.cuh")
+        for header in csrc.glob("*.cuh"):
+            shutil.copy(header, out / header.name)
         (out / source).write_text(src)
         libs[name] = out / f"lib{stem}.so"
         commands.append([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(libs[name]), str(out / source)])
@@ -67,10 +72,11 @@ def build_variants(variants: dict, source: str = "match.cu") -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         lines = log.splitlines()
-        at = next(i for i, line in enumerate(lines) if f"{stem}_blocks_kernel" in line and "Compiling" in line)
+        ats = [i for i, line in enumerate(lines) if f"{stem}_blocks_kernel" in line and "Compiling" in line]
         handle = ctypes.CDLL(str(lib))
         getattr(handle, entry).restype, getattr(handle, entry).argtypes = typed.restype, typed.argtypes
-        built[name] = handle, " | ".join(line.strip() for line in lines[at + 1 : at + 4])
+        # One report per instance of the kernel (the sweep's is a template of its mode).
+        built[name] = handle, " || ".join(" | ".join(line.strip() for line in lines[at + 1 : at + 4]) for at in ats)
     return built
 
 

@@ -171,6 +171,47 @@ def sweep_edge_blocks(block_size: int, window: int, seed: int = 0) -> tuple[np.n
     return np.stack(rows), np.array(lens, dtype=np.int32)
 
 
+def sweep_hard_blocks(block_size: int, window: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Blocks that stress the sweep kernel's table of word occurrences, as
+    ``plain_blocks`` returns them: one 4-byte word repeated through the
+    block (every walk ends at its first entry); all zeros; random bytes
+    with one word at every 8-aligned position (each aligned position's
+    chain is every earlier one, its run 1 word) and 40-byte repeats at lags
+    ``window + 64`` and ``window + 13`` (past the fine reach, aligned and
+    not) where they fit; random bytes over two letters, 5 bytes short of
+    ``block_size`` (chains of a sixteenth of the earlier positions, no run
+    reaching 64 bytes); and 4-byte slots drawn from 64 words whose keys in
+    the kernel's table are all equal (key collisions at every 4-aligned
+    position)."""
+    from pim_compression_tpu_torch.utils import sweep_table
+
+    rng = np.random.default_rng(seed)
+    rows = [np.resize(np.frombuffer(b"abcd", np.uint8), block_size), np.zeros(block_size, np.uint8)]
+    lens = [block_size, block_size]
+    stride8 = rng.integers(0, 256, block_size, dtype=np.uint8)
+    stride8[: block_size // 8 * 8].reshape(-1, 8)[:, :4] = (0x11, 0x22, 0x33, 0x44)
+    for lag, at in ((window + 64, block_size // 2 + 3), (window + 13, block_size // 2 + 203)):
+        if 0 <= at - lag and at + 40 <= block_size:
+            stride8[at : at + 40] = stride8[at - lag : at - lag + 40]
+    rows.append(stride8)
+    lens.append(block_size)
+    rows.append(rng.choice(np.frombuffer(b"ab", np.uint8), block_size))
+    lens.append(max(0, block_size - 5))
+    # Words v with the same top key bits of v * kHashMul: the multiplier is
+    # odd, so v = h * inverse(kHashMul) for h of one key and 64 low parts.
+    low_bits = 32 - sweep_table.KEY_BITS
+    key = int(rng.integers(0, 1 << sweep_table.KEY_BITS))
+    low = rng.choice(1 << low_bits, 64, replace=False)
+    inverse = pow(sweep_table.HASH_MUL, -1, 1 << 32)
+    colliding = np.array([((key << low_bits | int(x)) * inverse) % (1 << 32) for x in low], "<u4")
+    slots = colliding[rng.integers(0, 64, -(-block_size // 4))]
+    rows.append(slots.view(np.uint8)[:block_size])
+    lens.append(block_size)
+    blocks = np.stack(rows)
+    blocks[3, lens[3] :] = 0
+    return blocks, np.array(lens, dtype=np.int32)
+
+
 def far_repeat_block(block_size: int, seed: int = 0) -> bytes:
     """A block of random bytes whose last 7/16 repeat its first bytes at lag
     9/16 of the block: any compressor's copies there take offsets above

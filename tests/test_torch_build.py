@@ -15,7 +15,7 @@ torch.set_num_threads(1)
 
 def test_sources_are_the_csrc_kernels():
     names = [p.name for p in _build._sources()]
-    assert {"decode.cu", "match.cu", "emit.cu", "sweep.cu", "probes.cu", "staging.cuh"} <= set(names)
+    assert {"decode.cu", "match.cu", "emit.cu", "sweep.cu", "probes.cu", "staging.cuh", "radix.cuh"} <= set(names)
     assert all(p.parent == _build.CSRC_DIR for p in _build._sources())
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 

@@ -310,9 +310,10 @@ def test_cuda_sweep_kernel_matches_plain_version(cuda_device, block_size, knobs)
     n = 200 if block_size <= 1024 else 24
     rb, rl = streams.plain_blocks(block_size, n, block_size + 1)
     eb, el = streams.sweep_edge_blocks(block_size, knobs["window"], 2)
+    hb, hl = streams.sweep_hard_blocks(block_size, knobs["window"], 3)  # the table walk's hard blocks
     text = np.frombuffer(streams.text_payload(8 * block_size, 6), np.uint8).reshape(8, block_size)
-    blocks = torch.from_numpy(np.concatenate([rb, eb, text])).to(cuda_device)
-    lens = torch.from_numpy(np.concatenate([rl, el, np.full(8, block_size, np.int32)])).to(cuda_device)
+    blocks = torch.from_numpy(np.concatenate([rb, eb, hb, text])).to(cuda_device)
+    lens = torch.from_numpy(np.concatenate([rl, el, hl, np.full(8, block_size, np.int32)])).to(cuda_device)
     launches = hopper_sweep.LAUNCHES
     mlen, mlag = hopper_sweep.sweep_match(blocks, lens, **knobs)
     torch.cuda.synchronize()
@@ -341,6 +342,15 @@ def test_cuda_engine_sweep_round_trip(cuda_device, mode):
     assert bytes(stream) == bytes(plain)
     assert bytes(runtime.decompress(bytes(stream), TorchCodecConfig(engine="cuda"))) == data
     assert oracle.decompress(bytes(stream)) == data
+
+
+def test_cuda_sweep_residency(cuda_device):
+    # Shared memory grows with the block size: two CTAs (blocks) an SM at
+    # 8 KB, one at 16 KB, and the kernel's registers do not cut that.
+    assert hopper_sweep.ctas_per_sm(8192, cuda_device) == 2
+    assert hopper_sweep.ctas_per_sm(16384, cuda_device) == 1
+    with pytest.raises(RuntimeError):
+        hopper_sweep.ctas_per_sm(32768, cuda_device)
 
 
 def test_cuda_sweep_wrapper_rejects_bad_tensors(cuda_device):
