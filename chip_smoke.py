@@ -90,7 +90,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
  16. devbench: runtime.devbench.slope_measure on the "cuda" engine at bs
      32768 over the phase-4 payload: its G=8 batch is phase 6's main batch,
      so its encode ratio must equal round(1 - r, 4) with r phase 6's
-     compressed / plaintext ratio; each kernel launches once per timed call.
+     compressed / plaintext ratio; each kernel launches once per timed call;
+ 17. pipelined main paths: phase 4's stream and phase 7's payload at
+     batch_blocks 128 (9 batches each way) at pipeline depths 1, 2 and 4:
+     every stream must equal phase 7's and every output the payload, the
+     launch counts the batch counts; verify=True passes at depth 4, and
+     corrupt blocks raise at depth 4 naming the block depth 1 names. Prints
+     best-of-3 GB/s and phases per depth, and, from timing events on the
+     staging ring's slot streams, how long each batch's h2d copy and
+     kernels ran before the batch ahead of it was back; at depth 2 and 4
+     that must be above 0 for some batch in each direction.
+Phases 4, 7, 10, 12 and 14 run at the default pipeline depth, 2.
 Before the kernels line, a "probes" JSON line gives the card's measured
 device copy rate and int32 rates beside the datasheet's (the bounds keep the
 datasheet's). The line before the last is a JSON summary of the kernels, each with its
@@ -107,6 +117,7 @@ beside; for a probe the steps its inputs take); the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import random
@@ -122,6 +133,9 @@ ODD_SIZES = (100, 1000, 4097)  # decode block sizes outside the encoder's envelo
 MAIN_BLOCKS = 1100
 SEED = 20261016
 RANDOM_BLOCKS = (3, 100, 333, 512, 777, 1023, 1024, 1090)  # spliced into the compress payloads
+PIPE_BATCH = 128  # phase 17's batch: 9 batches each way at 32 KB
+PIPE_DEPTHS = (1, 2, 4)
+PIPE_CORRUPT = (300, 700)  # in the 3rd and the 6th of phase 17's batches
 # The sweep's main config: README's best bs-8192 point (-b 8192 --matcher
 # sweep --window 2048 --coarse-window 8192 --coarse-mode granular).
 SWEEP_MAIN = dict(matcher="sweep", match_window=2048, coarse_window=8192, coarse_mode="granular")
@@ -520,6 +534,73 @@ def compress_main(payload: bytes, bs: int, enc_batch: dict, knobs=None, payload_
         "launches": launches, "e2e_gbs": e2e_gbs, "notes": dict(timer.notes), "ratio": len(stream) / len(spliced),
         "stream": stream, "batches": batches,
     }
+
+
+def pipelined_phase(stream: bytes, payload: bytes, comp: dict) -> dict:
+    """Phase 17: both main paths at 32 KB in 128-block batches at depths 1,
+    2 and 4; returns each depth's launch counts, GB/s and overlaps."""
+    from pim_compression_tpu_torch import TorchCodecConfig, runtime
+    from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match
+    from pim_compression_tpu_torch.runtime import pipeline, staging
+    from pim_compression_tpu_torch.utils.errors import SnappyError
+
+    spliced = splice(payload, BS)
+    nb = len(pipeline.scan_frames(stream)["payload_off"])
+    dec_batches = -(-nb // PIPE_BATCH)
+    comp_batches = -(-(nb - comp["notes"]["raw_blocks"]) // PIPE_BATCH)
+    out = {}
+    for depth in PIPE_DEPTHS:
+        cfg = TorchCodecConfig(engine="cuda", block_size=BS, batch_blocks=PIPE_BATCH, pipeline_depth=depth)
+        reset_counts()
+        if bytes(runtime.decompress(stream, cfg)) != payload:
+            raise AssertionError(f"depth {depth}: decompressed bytes differ from the payload")
+        dec_launches = hopper_decode.LAUNCHES
+        reset_counts()
+        if bytes(runtime.compress(spliced, cfg)) != comp["stream"]:
+            raise AssertionError(f"depth {depth}: the stream differs from phase 7's")
+        comp_launches = (hopper_match.LAUNCHES, hopper_encode.LAUNCHES)
+        if dec_launches != dec_batches or comp_launches != (comp_batches, comp_batches):
+            raise AssertionError(f"depth {depth}: launches decode {dec_launches} for {dec_batches} batches, "
+                                 f"(match, emit) {comp_launches} for {comp_batches}")
+        rec = {"launches": {"decode": dec_launches, "match": comp_launches[0], "emit": comp_launches[1]}}
+        for name, fn, nbytes, want in (
+            ("decompress", lambda t: runtime.decompress(stream, cfg, t), len(payload), payload),
+            ("compress", lambda t: runtime.compress(spliced, cfg, t), len(spliced), comp["stream"]),
+        ):
+            gbs, secs, timer = best_of_3(fn, nbytes, want, f"{name} depth {depth}")
+            staging.TIMELINE = []
+            try:
+                fn(runtime.PhaseTimer())
+                overlap = staging.overlap_ms(staging.TIMELINE)
+            finally:
+                staging.TIMELINE = None
+            if depth >= 2 and not any(overlap):
+                raise AssertionError(f"{name} depth {depth}: no batch ran before the one ahead of it was back")
+            rec[name] = {"gbs": gbs, "ms": secs * 1e3, "phases_ms": {k: v * 1e3 for k, v in timer.seconds.items()},
+                         "overlap_ms": overlap}
+            log(f"  depth {depth} {name}: {gbs:.3f} GB/s ({secs * 1e3:.1f} ms); phases {timer.json()}; "
+                f"overlap of each batch with the one ahead, ms: {[round(o, 3) for o in overlap]}")
+        out[depth] = rec
+    deep = TorchCodecConfig(engine="cuda", block_size=BS, batch_blocks=PIPE_BATCH, pipeline_depth=PIPE_DEPTHS[-1])
+    if bytes(runtime.compress(spliced, dataclasses.replace(deep, verify=True))) != comp["stream"]:
+        raise AssertionError("verify=True at depth 4 gave another stream")
+    info = pipeline.scan_frames(stream)
+    bad = bytearray(stream)
+    for b in PIPE_CORRUPT:
+        bad[int(info["payload_off"][b])] = 0x01  # the block opens with a copy: nothing to copy from
+    named = {}
+    for depth in (1, PIPE_DEPTHS[-1]):
+        try:
+            runtime.decompress(bytes(bad), dataclasses.replace(deep, pipeline_depth=depth))
+        except SnappyError as e:
+            named[depth] = str(e)
+        else:
+            raise AssertionError(f"depth {depth}: corrupt blocks decoded without an error")
+    if named[1] != named[PIPE_DEPTHS[-1]] or f"block {PIPE_CORRUPT[0]} " not in named[1]:
+        raise AssertionError(f"corrupt blocks named differently: {named}")
+    log(f"  verify=True passes at depth {PIPE_DEPTHS[-1]}; corrupt blocks {PIPE_CORRUPT} rejected at depths 1 and "
+        f"{PIPE_DEPTHS[-1]} alike: {named[1]}")
+    return out
 
 
 def run_cli(argv: list[str], cwd: str) -> tuple[dict, str]:
@@ -1003,6 +1084,12 @@ def main() -> int:
     if launches != (calls, calls, calls):
         raise AssertionError(f"devbench: launches (match, emit, decode) {launches}, expected {calls} each")
     log(f"  {json.dumps({'devbench': bench})}")
+
+    # 17. The main paths pipelined at several depths.
+    log(f"phase 17: pipelined main paths at bs {BS}, batch_blocks {PIPE_BATCH}, depths {PIPE_DEPTHS}")
+    t0 = time.perf_counter()
+    piped = pipelined_phase(stream, payload, comp)
+    log(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, max_err, ms, plain_ms, work, **extra):
@@ -1025,10 +1112,13 @@ def main() -> int:
     # batch), match and emit (one 1024-block batch at the zero-flag config);
     # the sweep's main config for the sweep (one 1024-block batch at 8 KB);
     # the match's sort-mode configs beside (phase 13). Launches: the main
-    # paths' runs (phases 4, 7, 10 and 12) and the CLI's (phase 14).
+    # paths' runs (phases 4, 7, 10, 12 and 17) and the CLI's (phase 14).
     def cli_launches(kernel):
         return {f"cli {name} {side}": run[side][kernel] for name, run in cli_runs.items()
                 for side in ("compress", "decompress") if run[side][kernel]}
+
+    def piped_launches(kernel):
+        return {f"{BS} batch {PIPE_BATCH} depth {depth}": rec["launches"][kernel] for depth, rec in piped.items()}
 
     def timing(st):
         return {"blocks": st["blocks"], "ms": st["match_ms"], "plain_ms": st["match_plain_ms"],
@@ -1042,7 +1132,8 @@ def main() -> int:
             "decode_blocks", "decode.cu",
             ["pim_compression_tpu/ops/pallas_decode.py:87", "pim_compression_tpu/ops/pallas_decode.py:263",
              "pim_compression_tpu/ops/pallas_decode.py:620"],
-            {str(BS): dec["launches"], str(WIDE_BS): wide_dec["launches"], **cli_launches("decode")},
+            {str(BS): dec["launches"], str(WIDE_BS): wide_dec["launches"], **cli_launches("decode"),
+             **piped_launches("decode")},
             max(st["max_abs_err"] for st in stats), wide_stats["ms"], wide_stats["plain_ms"], wide_stats["bound"],
             walks_per_sm=walks,
         ),
@@ -1050,7 +1141,8 @@ def main() -> int:
             "match_blocks", "match.cu",
             ["pim_compression_tpu/ops/pallas_match.py:131", "pim_compression_tpu/ops/pallas_match.py:548",
              "pim_compression_tpu/ops/pallas_match.py:679", "pim_compression_tpu/ops/pallas_match.py:821"],
-            {str(BS): comp["launches"][0], str(WIDE_BS): wide_comp["launches"][0], **cli_launches("match")},
+            {str(BS): comp["launches"][0], str(WIDE_BS): wide_comp["launches"][0], **cli_launches("match"),
+             **piped_launches("match")},
             max(st["match_err"] for st in enc_stats), wide_enc_batch["match_ms"], wide_enc_batch["match_plain_ms"],
             wide_enc_batch["match_bound"],
             configs={"32768-zero-flag": timing(enc_batch), **{name: timing(st) for name, st in mode_stats.items()}},
@@ -1059,7 +1151,7 @@ def main() -> int:
             "emit_blocks", "emit.cu",
             ["pim_compression_tpu/ops/pallas_encode.py:559", "pim_compression_tpu/ops/pallas_encode.py:863"],
             {str(BS): comp["launches"][1], str(WIDE_BS): wide_comp["launches"][1],
-             str(SWEEP_BS): sweep_comp["launches"][1], **cli_launches("emit")},
+             str(SWEEP_BS): sweep_comp["launches"][1], **cli_launches("emit"), **piped_launches("emit")},
             max(st["emit_err"] for st in enc_stats + sweep_stats), wide_enc_batch["emit_ms"],
             wide_enc_batch["emit_plain_ms"], wide_enc_batch["emit_bound"],
         ),

@@ -168,7 +168,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--pipeline-depth", type=int, default=2,
-        help="accepted for the JAX CLI's sake: the port runs device batches synchronously",
+        help="device batches in flight (each on a CUDA stream with pinned host buffers); "
+        "<= 1 runs them synchronously, with exact per-phase times",
     )
     p.add_argument("--json", action="store_true", help="emit structured metrics")
     p.add_argument(

@@ -21,9 +21,27 @@ from pim_compression_tpu_torch.format import oracle
 from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 from pim_compression_tpu_torch.ops import _build, hopper_decode, hopper_encode
 from pim_compression_tpu_torch.parallel import resolve_device
-from pim_compression_tpu_torch.runtime import pipeline
+from pim_compression_tpu_torch.runtime import pipeline, staging
 from pim_compression_tpu_torch.runtime.profiling import PhaseTimer
 from pim_compression_tpu_torch.utils.config import TorchCodecConfig
+
+
+def _schedule(config: TorchCodecConfig, count: int) -> tuple[int, bool, int]:
+    """(depth, synchronous, slots) of ``count`` batches, as the JAX runtime
+    decides them: ``depth = max(1, pipeline_depth)``, synchronous at depth 1
+    or for a single batch, one slot per batch in flight."""
+    depth = max(1, config.pipeline_depth)
+    sync = depth <= 1 or count <= 1
+    return (1, True, 1) if sync else (depth, False, min(depth, count))
+
+
+def _runs(idx: np.ndarray) -> list[tuple[int, int, int]]:
+    """The contiguous runs of the sorted block indices ``idx``, each as
+    (its position in ``idx``, its first block, its length): a batch's rows
+    are copied run by run, each one contiguous copy."""
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(idx) != 1) + 1])
+    lengths = np.diff(np.append(starts, idx.size))
+    return list(zip(starts.tolist(), idx[starts].tolist(), lengths.tolist()))
 
 
 def decompress(
@@ -34,12 +52,25 @@ def decompress(
     """Decompress a framed stream.
 
     The device engines decode batches of ``config.batch_blocks`` blocks
-    (plus a tail batch), each h2d -> decode -> d2h, straight into one output
-    buffer at ``start * block_size``; they return it without a detaching copy
-    when it is 1 MiB or more. Batches run synchronously. With
-    ``config.validate``, a block with any error bit raises ``SnappyError``.
-    A stream of no blocks gives ``b""`` on every engine, with or without a
-    device.
+    (plus a tail batch), each h2d -> decode -> d2h through a slot of the
+    device's staging ring (``runtime.staging``: pinned host buffers and a
+    CUDA stream per slot), straight into one output buffer at ``start *
+    block_size``; they return it without a detaching copy when it is 1 MiB
+    or more. As in the JAX runtime, up to ``config.pipeline_depth`` batches
+    are in flight: batch i+1's h2d and kernel run while batch i comes back,
+    and batches are drained in launch order; a batch's input is copied into
+    its slot as soon as the slot is free, so the ring fills before the
+    first launch. Synchronous mode (depth <= 1,
+    or a single batch) closes every phase with a sync, so each phase is the
+    time of its own work. In pipelined mode ``h2d`` is the host copy into
+    the slot plus the time to enqueue the copy, ``kernel`` the time to
+    enqueue the kernel and the d2h copy, and ``d2h`` the wait for the batch
+    plus the host copy out of the slot. With ``config.validate``, a block
+    with any error bit raises ``SnappyError`` when its batch is drained,
+    naming the first such block in drain order. One-time device set-up (the
+    kernels' build, the CUDA context, the ring's streams and first pinned
+    allocation) is timed under ``compile``. A stream of no blocks gives
+    ``b""`` on every engine, with or without a device.
     """
     config = config or TorchCodecConfig()
     timer = timer if timer is not None else PhaseTimer()
@@ -59,11 +90,6 @@ def decompress(
         if nb == 0:  # before the device, as the reference returns
             return b""
     device = resolve_device(config.engine, config.device)
-    on_cuda = device.type == "cuda"
-
-    def sync() -> None:
-        if on_cuda:
-            torch.cuda.synchronize(device)
 
     with timer.phase("pre"):
         comp, comp_len, out_len = pipeline.blockize_compressed(stream, info)
@@ -71,26 +97,67 @@ def decompress(
         result = native.uninit_bytearray(total_len) if native.available() else bytearray(total_len)
         flat = torch.frombuffer(result, dtype=torch.uint8)
 
-    if config.engine == "cuda":
-        with timer.phase("compile"):
-            _build.load()
-        decode = hopper_decode.decode_blocks
-    else:
-        decode = hopper_decode.decode_blocks_torch
-
     batch = max(1, config.batch_blocks)
-    for start in range(0, nb, batch):
-        stop = min(nb, start + batch)
+    count = -(-nb // batch)
+    depth, sync, slots = _schedule(config, count)
+    rows = min(batch, nb)
+    cap = comp.shape[1]
+    with timer.phase("compile"):
+        if config.engine == "cuda":
+            _build.load()
+        ring = staging.acquire(device, slots, {
+            "in": {"comp": ((rows, cap), torch.uint8), "comp_len": ((rows,), torch.int32),
+                   "out_len": ((rows,), torch.int32)},
+            "out": {"out": ((rows, block_size), torch.uint8), "err": ((rows,), torch.int32)},
+        })
+    decode = hopper_decode.decode_blocks if config.engine == "cuda" else hopper_decode.decode_blocks_torch
+
+    def fetch(slot, n, out, err):  # enqueue the d2h copies on the slot's stream
+        slot.mark("d2h")
+        with slot.on_stream():
+            slot.views["out"][:n].copy_(out, non_blocking=True)
+            slot.views["err"][:n].copy_(err, non_blocking=True)
+        slot.finish()
+
+    def stage(i, slot):  # the host copy into the slot, once it is free
+        start, stop = i * batch, min(nb, (i + 1) * batch)
+        n = stop - start
+        host = slot.views
         with timer.phase("h2d"):
-            comp_d = comp[start:stop].to(device)
-            clen_d = comp_len[start:stop].to(device)
-            olen_d = out_len[start:stop].to(device)
-            sync()
+            slot.take(i)
+            host["comp"][:n].copy_(comp[start:stop])
+            host["comp_len"][:n].copy_(comp_len[start:stop])
+            host["out_len"][:n].copy_(out_len[start:stop])
+        return start, stop
+
+    def launch(i, slot, staged):
+        start, stop = staged
+        n = stop - start
+        host = slot.views
+        with timer.phase("h2d"):
+            slot.mark("h2d")
+            with slot.on_stream():
+                args = [host[k][:n].to(device, non_blocking=True) for k in ("comp", "comp_len", "out_len")]
+            if sync:
+                slot.synchronize()
         with timer.phase("kernel"):
-            out, err = decode(comp_d, clen_d, olen_d, block_size=block_size)
-            sync()
+            with slot.on_stream():
+                out, err = decode(*args, block_size=block_size)
+            if sync:
+                slot.synchronize()
+            else:
+                fetch(slot, n, out, err)
+        return start, stop, args, out, err  # the device tensors live until the drain
+
+    def drain(i, slot, held):
+        start, stop, _, out, err = held
+        n = stop - start
+        host = slot.views
         with timer.phase("d2h"):
-            err_h = err.cpu()
+            if sync:
+                fetch(slot, n, out, err)
+            slot.ready()
+            err_h = host["err"][:n]
             if config.validate and bool(err_h.any()):
                 bad = int(torch.nonzero(err_h)[0, 0])
                 raise SnappyError(
@@ -99,10 +166,13 @@ def decompress(
                 )
             lo = start * block_size
             hi = min(stop * block_size, total_len)
-            rows = (hi - lo) // block_size
-            flat[lo : lo + rows * block_size].view(rows, block_size).copy_(out[:rows])
-            if lo + rows * block_size < hi:  # final partial block
-                flat[lo + rows * block_size : hi].copy_(out[rows, : hi - lo - rows * block_size])
+            full = (hi - lo) // block_size
+            flat[lo : lo + full * block_size].view(full, block_size).copy_(host["out"][:full])
+            if lo + full * block_size < hi:  # final partial block
+                flat[lo + full * block_size : hi].copy_(host["out"][full, : hi - lo - full * block_size])
+
+    with ring:
+        staging.run(ring, count, depth, stage, launch, drain)
 
     with timer.phase("post"):
         return bytes(result) if total_len < (1 << 20) else result
@@ -118,7 +188,9 @@ def compress(
     The device engines blockize the input, divert incompressible blocks to
     raw literal frames (``config.raw_triage``), and encode the rest in
     batches of ``config.batch_blocks`` (plus a tail batch), each h2d ->
-    match + emit -> d2h, synchronously. The sorted matcher in every mode
+    match + emit -> d2h through a slot of the device's staging ring, with up
+    to ``config.pipeline_depth`` batches in flight and the phases timed as
+    ``decompress`` says. The sorted matcher in every mode
     (rung pick, ``sel_all`` select ladder, per-rung ladder; any rung
     strides and sort window) at 256 <= block_size <= 65536 (a multiple of
     128) is ported, with the reference's switch to the select ladder above
@@ -130,7 +202,9 @@ def compress(
     gives the header-only stream before any of these checks, on every
     engine, with or without a device, as in the reference. With
     ``config.verify``, each batch is decoded again on its device and
-    compared with its input blocks; a mismatch raises ``SnappyError``.
+    compared with its input blocks; a per-block flag comes back with the
+    batch, and a mismatch raises ``SnappyError`` when the batch is drained,
+    naming its failing blocks.
     """
     config = config or TorchCodecConfig()
     timer = timer if timer is not None else PhaseTimer()
@@ -149,12 +223,7 @@ def compress(
     select_notes: dict = {}
     knobs = hopper_encode.encode_knobs(config, select_notes)
     device = resolve_device(config.engine, config.device)
-    on_cuda = device.type == "cuda"
     cap = pipeline.padded_capacity(block_size)
-
-    def sync() -> None:
-        if on_cuda:
-            torch.cuda.synchronize(device)
 
     with timer.phase("pre"):
         blocks, lens = pipeline.blockize_plain(data, block_size)
@@ -167,37 +236,92 @@ def compress(
             timer.notes.update(select_notes)
         comp = np.empty((nb, cap), dtype=np.uint8)
         sizes = np.empty(nb, dtype=np.int32)
+        blocks_t, lens_t, comp_t, sizes_t = (torch.from_numpy(a) for a in (blocks, lens, comp, sizes))
 
-    if config.engine == "cuda":
-        with timer.phase("compile"):
+    batch = max(1, config.batch_blocks)
+    count = -(-dev_idx.size // batch)
+    depth, sync, slots = _schedule(config, count)
+    rows = min(batch, dev_idx.size)
+    with timer.phase("compile"):
+        if config.engine == "cuda":
             _build.load()
+        # No batch when the triage diverted every block: no device work at all.
+        ring = staging.acquire(device, slots, {
+            "in": {"blocks": ((rows, block_size), torch.uint8), "lens": ((rows,), torch.int32)},
+            "out": {"comp": ((rows, cap), torch.uint8), "sizes": ((rows,), torch.int32),
+                    "bad": ((rows,), torch.int32)},
+        }) if count else None
+    if config.engine == "cuda":
         encode, decode = hopper_encode.encode_blocks, hopper_decode.decode_blocks
     else:
         encode, decode = hopper_encode.encode_blocks_torch, hopper_decode.decode_blocks_torch
 
-    batch = max(1, config.batch_blocks)
-    for start in range(0, dev_idx.size, batch):
-        rows = dev_idx[start : start + batch]
+    def fetch(slot, n, comp_d, sizes_d, bad_d):  # enqueue the d2h copies on the slot's stream
+        slot.mark("d2h")
+        with slot.on_stream():
+            slot.views["comp"][:n].copy_(comp_d, non_blocking=True)
+            slot.views["sizes"][:n].copy_(sizes_d, non_blocking=True)
+            if bad_d is not None:
+                slot.views["bad"][:n].copy_(bad_d, non_blocking=True)
+        slot.finish()
+
+    def stage(i, slot):  # the host copy into the slot, once it is free
+        idx = dev_idx[i * batch : (i + 1) * batch]
+        runs = _runs(idx)
+        host = slot.views
         with timer.phase("h2d"):
-            blocks_d = torch.from_numpy(blocks[rows]).to(device)
-            lens_d = torch.from_numpy(lens[rows]).to(device)
-            sync()
+            slot.take(i)
+            for at, first, length in runs:  # raw blocks split the batch's rows into runs
+                host["blocks"][at : at + length].copy_(blocks_t[first : first + length])
+                host["lens"][at : at + length].copy_(lens_t[first : first + length])
+        return idx, runs
+
+    def launch(i, slot, staged):
+        idx, runs = staged
+        n = idx.size
+        host = slot.views
+        with timer.phase("h2d"):
+            slot.mark("h2d")
+            with slot.on_stream():
+                blocks_d = host["blocks"][:n].to(device, non_blocking=True)
+                lens_d = host["lens"][:n].to(device, non_blocking=True)
+            if sync:
+                slot.synchronize()
         with timer.phase("kernel"):
-            comp_d, sizes_d = encode(blocks_d, lens_d, cap=cap, **knobs)
-            if config.verify:
-                out_v, err_v = decode(comp_d, sizes_d, lens_d, block_size=block_size)
-                inside = torch.arange(block_size, device=device)[None, :] < lens_d[:, None]
-                bad = ((out_v != blocks_d) & inside).any(dim=1) | (err_v != 0)
-            sync()
+            with slot.on_stream():
+                comp_d, sizes_d = encode(blocks_d, lens_d, cap=cap, **knobs)
+                bad_d = None
+                if config.verify:
+                    out_v, err_v = decode(comp_d, sizes_d, lens_d, block_size=block_size)
+                    inside = torch.arange(block_size, device=device)[None, :] < lens_d[:, None]
+                    bad_d = (((out_v != blocks_d) & inside).any(dim=1) | (err_v != 0)).to(torch.int32)
+            if sync:
+                slot.synchronize()
+            else:
+                fetch(slot, n, comp_d, sizes_d, bad_d)
+        return idx, runs, blocks_d, lens_d, comp_d, sizes_d, bad_d  # the device tensors live until the drain
+
+    def drain(i, slot, held):
+        idx, runs, _, _, comp_d, sizes_d, bad_d = held
+        n = idx.size
+        host = slot.views
         with timer.phase("d2h"):
-            if config.verify and bool(bad.any()):
-                failed = rows[np.flatnonzero(bad.cpu().numpy())]
+            if sync:
+                fetch(slot, n, comp_d, sizes_d, bad_d)
+            slot.ready()
+            for at, first, length in runs:
+                comp_t[first : first + length].copy_(host["comp"][at : at + length])
+                sizes_t[first : first + length].copy_(host["sizes"][at : at + length])
+            if bad_d is not None and bool(host["bad"][:n].any()):
+                failed = idx[np.flatnonzero(host["bad"][:n].numpy())]
                 raise SnappyError(
                     SnappyStatus.INVALID_INPUT,
                     f"on-device verify failed for blocks {failed[:8].tolist()}",
                 )
-            comp[rows] = comp_d.cpu().numpy()
-            sizes[rows] = sizes_d.cpu().numpy()
+
+    if ring is not None:
+        with ring:
+            staging.run(ring, count, depth, stage, launch, drain)
 
     with timer.phase("post"):
         pipeline.raw_literal_frames(blocks, lens, comp, sizes, np.flatnonzero(raw))

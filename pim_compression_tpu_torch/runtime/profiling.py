@@ -2,9 +2,13 @@
 
 The original cannot be imported without JAX (its package imports the JAX
 runtime). Phases: ``pre`` (host scan/blockize) / ``h2d`` / ``kernel`` /
-``d2h`` / ``post``, plus ``compile`` for kernel builds. Each phase is host
-wall time; a device phase is closed by a synchronising call, so its time
-includes the device work.
+``d2h`` / ``post``, plus ``compile`` for one-time kernel build and device
+set-up (the CUDA context, the staging ring's streams and its first pinned
+allocation). Each phase is host wall time. In synchronous mode
+(``pipeline_depth <= 1`` or a single batch) a device phase is closed by a
+synchronising call, so its time includes the device work; with batches in
+flight ``h2d`` and ``kernel`` are the host's time to stage and enqueue, and
+``d2h`` holds the wait for each batch (``runtime.api``).
 """
 
 from __future__ import annotations

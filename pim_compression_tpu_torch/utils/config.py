@@ -222,7 +222,8 @@ class TorchCodecConfig:
     # Device-batch pipelining: up to this many batches in flight; h2d+kernel
     # of batch i+1 overlap d2h of batch i. <=1 = fully synchronous batches
     # (exact per-phase timing attribution, the reference's phase taxonomy).
-    # The port ignores it: batches run one after another (ROADMAP §A, batch pipelining).
+    # In the port each batch in flight holds a slot of the device's staging
+    # ring (runtime/staging.py: a CUDA stream, pinned host buffers, an event).
     pipeline_depth: int = 2
     # When True, engine="pallas" raises instead of silently falling back to
     # the xla kernels for block sizes beyond the pallas envelope.

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (decode, match, sweep, emit, the probes) and devbench, on a GPU.
+"""The port's CUDA kernels (decode, match, sweep, emit, the probes), devbench and the staging ring, on a GPU.
 
 Every test here needs a CUDA device and nvcc, carries the ``cuda`` marker
 and skips without a device. The file imports no JAX, so it also runs where
@@ -9,7 +9,8 @@ only PyTorch is installed:
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors: the decode kernel by verdicts on every block and bytes on valid
 blocks, the match and emit kernels exactly (every length, lag, size and
-byte), the probe kernels exactly; and the engines against the plaintext.
+byte), the probe kernels exactly; and the engines against the plaintext,
+at every pipeline depth, through pinned staging buffers.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ import torch
 from pim_compression_tpu import native
 from pim_compression_tpu.format import oracle
 from pim_compression_tpu_torch import TorchCodecConfig, runtime
+from pim_compression_tpu_torch.utils.errors import SnappyError
 from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
-from pim_compression_tpu_torch.runtime import pipeline
+from pim_compression_tpu_torch.runtime import pipeline, staging
 from pim_compression_tpu_torch.utils import streams
 
 # One torch thread per test process: the xdist workers share the machine's cores.
@@ -497,3 +499,154 @@ def test_cuda_devbench_slope_measure(cuda_device):
         cap=pipeline.padded_capacity(bs), **hopper_encode.encode_knobs(TorchCodecConfig(block_size=bs)),
     )
     assert res["encode"]["ratio"] == round(1 - float(sizes.sum()) / (1024 * bs), 4)
+
+
+# ---------------------------------------------------------------------------
+# The bounded-depth pipeline and its staging ring.
+# ---------------------------------------------------------------------------
+
+
+def _pipeline_payload() -> bytes:
+    """12 blocks at 32 KB: block 3 random (diverted to a raw frame), a partial last block."""
+    rng = np.random.default_rng(17)
+    text = streams.text_payload(11 * 32768, 18)
+    return text[: 3 * 32768] + rng.integers(0, 256, 32768, dtype=np.uint8).tobytes() + text[4 * 32768 :] + b"tail"
+
+
+def test_cuda_pipeline_depths_agree(cuda_device):
+    data = _pipeline_payload()
+    got = {}
+    for depth in (1, 2, 4):
+        cfg = TorchCodecConfig(engine="cuda", block_size=32768, batch_blocks=2, pipeline_depth=depth)
+        launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES
+        stream = bytes(runtime.compress(data, cfg))
+        assert bytes(runtime.decompress(stream, cfg)) == data
+        # 11 device blocks and 12 blocks back: 6 batches of at most 2 each way.
+        assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES) == (
+            launches[0] + 6, launches[1] + 6, launches[2] + 6
+        )
+        got[depth] = stream
+    assert got[1] == got[2] == got[4]
+    plain = runtime.compress(data, TorchCodecConfig(engine="torch", device="cuda:0", block_size=32768))
+    assert got[1] == bytes(plain)
+
+
+def test_cuda_staging_is_pinned_and_reused(cuda_device, monkeypatch):
+    monkeypatch.setattr(staging, "_POOL", {})
+    data = _pipeline_payload()
+    cfg = TorchCodecConfig(engine="cuda", block_size=32768, batch_blocks=2, pipeline_depth=4)
+    stream = bytes(runtime.compress(data, cfg))
+    runtime.decompress(stream, cfg)
+    (ring,) = staging._POOL[str(cuda_device)]
+    arenas = [a for slot in ring.slots for a in slot.arenas.values()]
+    assert len(ring.slots) == 4 and len(arenas) == 8
+    assert all(a.is_pinned() for a in arenas)
+    ptrs = [a.data_ptr() for a in arenas]
+    monkeypatch.setattr(staging, "_pinned_empty", lambda nbytes: pytest.fail("a new pinned allocation"))
+    assert bytes(runtime.compress(data, cfg)) == stream  # the same sizes again: no new pinned memory
+    assert bytes(runtime.decompress(stream, cfg)) == data
+    assert staging._POOL[str(cuda_device)] == [ring]
+    assert [a.data_ptr() for slot in ring.slots for a in slot.arenas.values()] == ptrs
+
+
+@pytest.mark.parametrize("direction", ["decompress", "compress"])
+def test_cuda_failed_pinned_allocation_raises(cuda_device, monkeypatch, direction):
+    def fail(nbytes):
+        raise RuntimeError("CUDA error: out of memory")
+
+    monkeypatch.setattr(staging, "_POOL", {})
+    monkeypatch.setattr(staging, "_pinned_empty", fail)
+    data = _pipeline_payload()
+    stream = _compress(data, 32768)
+    cfg = TorchCodecConfig(engine="cuda", block_size=32768, batch_blocks=2)
+    launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES
+    with pytest.raises(SnappyError, match="pinned host staging"):
+        if direction == "decompress":
+            runtime.decompress(stream, cfg)
+        else:
+            runtime.compress(data, cfg)
+    # Nothing ran on pageable memory instead.
+    assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("direction", ["decompress", "compress"])
+def test_cuda_drain_waits_for_its_batch(cuda_device, monkeypatch, direction):
+    # The device made slow: every batch's kernels start behind a spin of
+    # about 10 ms on the slot's stream, while the host runs ahead. A drain
+    # that read its slot before the d2h copies had landed, or a slot
+    # refilled while its copies were in flight, would give wrong bytes.
+    module, name = (hopper_decode, "decode_blocks") if direction == "decompress" else (hopper_encode, "encode_blocks")
+    entry = getattr(module, name)
+
+    def slow(*args, **kw):
+        torch.cuda._sleep(20_000_000)
+        return entry(*args, **kw)
+
+    data = _pipeline_payload()
+    want = bytes(runtime.compress(data, TorchCodecConfig(engine="cuda", block_size=32768)))
+    monkeypatch.setattr(module, name, slow)
+    for depth in (2, 3):
+        cfg = TorchCodecConfig(engine="cuda", block_size=32768, batch_blocks=1, pipeline_depth=depth)
+        if direction == "decompress":
+            assert bytes(runtime.decompress(want, cfg)) == data
+        else:
+            assert bytes(runtime.compress(data, cfg)) == want
+
+
+def test_cuda_batches_overlap(cuda_device, monkeypatch):
+    # From the slot streams' events: at depth 2 some batch's h2d and kernels
+    # run before the batch ahead of it is back; at depth 1 none does.
+    data = _pipeline_payload()
+    stream = _compress(data, 32768)
+    overlap = {}
+    for depth in (1, 2):
+        monkeypatch.setattr(staging, "TIMELINE", [])
+        cfg = TorchCodecConfig(engine="cuda", block_size=32768, batch_blocks=1, pipeline_depth=depth)
+        assert bytes(runtime.decompress(stream, cfg)) == data
+        overlap[depth] = staging.overlap_ms(staging.TIMELINE)
+        assert len(overlap[depth]) == 11
+    assert max(overlap[1]) == 0 and max(overlap[2]) > 0
+
+
+SWEEP_8K = dict(block_size=8192, matcher="sweep", match_window=2048, coarse_window=8192, coarse_mode="granular")
+
+
+@pytest.mark.parametrize(
+    "direction, knobs",
+    [("decompress", dict(block_size=32768)), ("compress", dict(block_size=32768)), ("compress", SWEEP_8K)],
+    ids=["decompress", "compress", "compress-sweep"],
+)
+def test_cuda_nothing_waits_between_launch_and_drain(cuda_device, monkeypatch, direction, knobs):
+    # CUDA's sync debug mode raises on a call that waits for the device (an
+    # item, a copy to pageable memory, a stream's synchronize; not
+    # torch.cuda.synchronize, which the test refuses itself). It is on from
+    # the moment a batch holds its slot until the next drain's wait: no
+    # launch, kernel wrapper, verify or d2h enqueue at depth 2 may wait.
+    take, ready, synchronize = staging.Slot.take, staging.Slot.ready, torch.cuda.synchronize
+
+    def strict_take(slot, batch):
+        take(slot, batch)
+        torch.cuda.set_sync_debug_mode("error")
+
+    def drain_wait(slot):
+        torch.cuda.set_sync_debug_mode("default")
+        return ready(slot)
+
+    def refused_synchronize(device=None):
+        if torch.cuda.get_sync_debug_mode() != 0:
+            raise RuntimeError("torch.cuda.synchronize between a launch and its drain")
+        synchronize(device)
+
+    data = _pipeline_payload()
+    cfg = TorchCodecConfig(engine="cuda", batch_blocks=2, pipeline_depth=2, verify=True, **knobs)
+    stream = bytes(runtime.compress(data, cfg))
+    monkeypatch.setattr(staging.Slot, "take", strict_take)
+    monkeypatch.setattr(staging.Slot, "ready", drain_wait)
+    monkeypatch.setattr(torch.cuda, "synchronize", refused_synchronize)
+    try:
+        if direction == "decompress":
+            assert bytes(runtime.decompress(stream, cfg)) == data
+        else:
+            assert bytes(runtime.compress(data, cfg)) == stream
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
