@@ -37,10 +37,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      pass verify=True, and both kernels' launch counts must equal the batch
      count. Prints end-to-end, kernel-only, plain-PyTorch and single-threaded
      host GB/s and the stream ratio beside the native codec's;
-  8. encode error path: the sweep matcher above 16384 and granular at a block
-     size that is not a multiple of 256, a block size that is not a multiple
-     of 128 and a sort window that does not divide the padded sort size are
-     refused with BAD_ARGUMENT, and no kernel is launched;
+  8. encode error path: under strict_engine the sweep matcher above 16384
+     and a block size that is not a multiple of 128, and granular at a block
+     size that is not a multiple of 256 and a sort window that does not
+     divide the padded sort size in any case, are refused with BAD_ARGUMENT,
+     and no kernel is launched;
   9. 64 KB kernels vs plain: the match and emit kernels on 128 blocks of the
      64 KB payload at the zero-flag config (switched to the sel_all ladder)
      and at each preset's 64 KB row: every length, lag, size and byte equal;
@@ -99,9 +100,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      best-of-3 GB/s and phases per depth, and, from timing events on the
      staging ring's slot streams, how long each batch's h2d copy and
      kernels ran before the batch ahead of it was back; at depth 2 and 4
-     that must be above 0 for some batch in each direction.
-Phases 4, 7, 10, 12 and 14 run at the default pipeline depth, 2.
-Before the kernels line, a "probes" JSON line gives the card's measured
+     that must be above 0 for some batch in each direction;
+ 18. the portable engine (ops/{primitives,decode,encode}.py: plain PyTorch
+     ops on the card, no hand kernel): phase 7's and phase 10's spliced
+     payloads compressed through runtime.compress on the "portable" engine
+     (raw blocks diverted; decodes back through native, the "cuda" engine
+     and the portable decoder) and the phase-4 and phase-10 native streams
+     decompressed, best of 3; one 1024-block batch's device time and peak
+     memory for encode_blocks and decode_blocks; the first 64 blocks at 32
+     KB and 16 at 64 KB encoded and decoded alike on the card and the CPU;
+     256 block mutants at bs 1024 with out and err equal on the card and
+     the CPU; the "cuda" engine's envelope fallback (the sweep at 32768,
+     bs 128): the portable stream, a warning and an engine_fallback note,
+     no kernel launched, and under strict_engine BAD_ARGUMENT before any
+     launch. Its records make the "portable" JSON line.
+Phases 4, 7, 10, 12 and 14 run at the default pipeline depth, 2. Phase 18
+runs after the launch counts of the other phases are read.
+Before the kernels line, a "portable" JSON line gives phase 18's records,
+and a "probes" JSON line gives the card's measured
 device copy rate and int32 rates beside the datasheet's (the bounds keep the
 datasheet's). The line before the last is a JSON summary of the kernels, each with its
 time, its plain version's, its launches on the main paths and its bound (the
@@ -603,6 +619,151 @@ def pipelined_phase(stream: bytes, payload: bytes, comp: dict) -> dict:
     return out
 
 
+def portable_batch(blocks, lens, bs: int, device) -> dict:
+    """One batch of the portable engine's functions on the card: the
+    device time of encode_blocks and decode_blocks (CUDA events, mean of 3
+    after a first call) and the peak memory each allocates beyond its
+    resident inputs (``torch.cuda.max_memory_allocated``)."""
+    import torch
+
+    from pim_compression_tpu_torch.ops import decode as decode_ops, encode as encode_ops
+
+    blocks_d, lens_d = torch.from_numpy(blocks).to(device), torch.from_numpy(lens).to(device)
+    rec = {"blocks": len(lens), "bytes": int(lens.sum())}
+    for name, fn in (
+        ("encode", lambda: encode_ops.encode_blocks(blocks_d, lens_d, block_size=bs)),
+        ("decode", lambda: decode_ops.decode_blocks(comp_d, sizes_d, lens_d, block_size=bs)),
+    ):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        result = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device) - base
+        if name == "encode":
+            comp_d, sizes_d = result
+        else:
+            out_d, err_d = result
+        del result
+        rec[name] = {"ms": cuda_ms(fn, 3), "peak_mb": peak / 2**20}
+    if bool(err_d.any()) or not torch.equal(out_d, blocks_d):
+        raise AssertionError(f"portable bs {bs}: a batch does not decode back to its blocks")
+    rec["total_mb"] = torch.cuda.get_device_properties(device).total_memory / 2**20
+    return rec
+
+
+def portable_phase(payload: bytes, wide_payload: bytes, stream: bytes, wide_stream: bytes, device, card: str) -> dict:
+    """Phase 18: the portable engine (ops/{primitives,decode,encode}.py,
+    plain PyTorch ops with no hand kernel) on the card: its compress and
+    decompress at 32 KB and 64 KB, round trips, one batch's time and peak
+    memory, card against CPU, block mutants, and the cuda engine's
+    envelope fallback to it. Returns the records for its JSON line."""
+    import numpy as np
+    import torch
+
+    from pim_compression_tpu_torch import TorchCodecConfig, native, runtime
+    from pim_compression_tpu_torch.ops import decode as decode_ops, encode as encode_ops
+    from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
+    from pim_compression_tpu_torch.runtime import pipeline
+    from pim_compression_tpu_torch.utils import streams
+    from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
+
+    out = {"card": card}
+    for bs, plain, native_stream, cpu_rows in ((BS, payload, stream, 64), (WIDE_BS, wide_payload, wide_stream, 16)):
+        spliced = splice(plain, bs)
+        cfg = TorchCodecConfig(engine="portable", block_size=bs)
+        timer = runtime.PhaseTimer()
+        t0 = time.perf_counter()
+        comp = bytes(runtime.compress(spliced, cfg, timer))
+        first_s = time.perf_counter() - t0
+        raw = timer.notes.get("raw_blocks", 0)
+        if raw < len(RANDOM_BLOCKS) or "engine_fallback" in timer.notes:
+            raise AssertionError(f"portable bs {bs}: notes {timer.notes}")
+        if native.decompress(comp) != spliced:
+            raise AssertionError(f"portable bs {bs}: the native decoder does not give the payload back")
+        if bytes(runtime.decompress(comp, TorchCodecConfig(engine="cuda", block_size=bs))) != spliced:
+            raise AssertionError(f"portable bs {bs}: the cuda engine's decoder does not give the payload back")
+        if bytes(runtime.decompress(comp, cfg)) != spliced:
+            raise AssertionError(f"portable bs {bs}: the portable decoder does not give the payload back")
+        log(f"  bs {bs}: {len(spliced)} bytes compressed, {raw} raw blocks, ratio {len(comp) / len(spliced):.4f}; "
+            f"first run {len(spliced) / first_s / 1e9:.3f} GB/s; decodes back through native, cuda and portable")
+        c_gbs, c_s, c_timer = best_of_3(lambda t: runtime.compress(spliced, cfg, t), len(spliced), comp,
+                                        f"portable compress bs {bs}")
+        d_gbs, d_s, d_timer = best_of_3(lambda t: runtime.decompress(native_stream, cfg, t), len(plain), plain,
+                                        f"portable decompress bs {bs}")
+        log(f"  bs {bs} compress best of 3: {c_gbs:.3f} GB/s ({c_s * 1e3:.1f} ms); phases {c_timer.json()}")
+        log(f"  bs {bs} decompress (the native stream) best of 3: {d_gbs:.3f} GB/s ({d_s * 1e3:.1f} ms); "
+            f"phases {d_timer.json()}")
+        blocks, lens = pipeline.blockize_plain(spliced, bs)
+        batch = portable_batch(blocks[: cfg.batch_blocks], lens[: cfg.batch_blocks], bs, device)
+        log(f"  bs {bs}, one {batch['blocks']}-block batch on the card ({card}): encode {batch['encode']['ms']:.2f} ms, "
+            f"peak {batch['encode']['peak_mb']:.0f} MiB; decode {batch['decode']['ms']:.2f} ms, peak "
+            f"{batch['decode']['peak_mb']:.0f} MiB, of {batch['total_mb']:.0f} MiB")
+        # The same function on the card and on the CPU.
+        rows = [torch.from_numpy(a[:cpu_rows]) for a in (blocks, lens)]
+        comp_g, sizes_g = encode_ops.encode_blocks(*(r.to(device) for r in rows), block_size=bs)
+        comp_c, sizes_c = encode_ops.encode_blocks(*rows, block_size=bs)
+        if not (torch.equal(comp_g.cpu(), comp_c) and torch.equal(sizes_g.cpu(), sizes_c)):
+            raise AssertionError(f"portable bs {bs}: encode_blocks differs between the card and the CPU")
+        dec_g = decode_ops.decode_blocks(comp_g, sizes_g, rows[1].to(device), block_size=bs)
+        dec_c = decode_ops.decode_blocks(comp_c, sizes_c, rows[1], block_size=bs)
+        if not all(torch.equal(g.cpu(), c) for g, c in zip(dec_g, dec_c)):
+            raise AssertionError(f"portable bs {bs}: decode_blocks differs between the card and the CPU")
+        log(f"  bs {bs}: the first {cpu_rows} blocks encode and decode alike on the card and the CPU")
+        out[str(bs)] = {
+            "compress_gbs": c_gbs, "compress_ms": c_s * 1e3, "compress_phases_ms": {k: v * 1e3 for k, v in c_timer.seconds.items()},
+            "decompress_gbs": d_gbs, "decompress_ms": d_s * 1e3,
+            "decompress_phases_ms": {k: v * 1e3 for k, v in d_timer.seconds.items()},
+            "ratio": len(comp) / len(spliced), "batch": batch,
+        }
+
+    # Block mutants at 1024: the card's verdicts and bytes are the CPU's.
+    sub = payload[: 64 * 1024]
+    base = streams.hand_blocks(1024) + stream_blocks(native.compress(sub, 1024))
+    muts = streams.block_mutants(base, random.Random(SEED + 18), 256, 1024)
+    args = to_device(base + muts, 1024, device)
+    got = decode_ops.decode_blocks(*args, block_size=1024)
+    want = decode_ops.decode_blocks(*(a.cpu() for a in args), block_size=1024)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("portable: block mutants decode differently on the card and the CPU")
+    log(f"  {len(base)} blocks and {len(muts)} mutants at bs 1024: out and err equal on the card and the CPU "
+        f"({int((want[1][len(base):] != 0).sum())} mutants flagged)")
+
+    # The cuda engine's envelope fallback: the portable stream on the card,
+    # a warning and a note, no kernel launched; strict_engine raises first.
+    import warnings
+
+    fb_data = payload[: 2 << 20]
+    mods = (hopper_decode, hopper_match, hopper_sweep, hopper_encode)
+    out["fallback"] = {}
+    for knobs in (dict(block_size=BS, matcher="sweep"), dict(block_size=128)):
+        want_stream = bytes(runtime.compress(fb_data, TorchCodecConfig(engine="portable", block_size=knobs["block_size"])))
+        timer = runtime.PhaseTimer()
+        reset_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got_stream = bytes(runtime.compress(fb_data, TorchCodecConfig(engine="cuda", **knobs), timer))
+        note = timer.notes.get("engine_fallback", "")
+        if got_stream != want_stream or not note.startswith("cuda->portable ("):
+            raise AssertionError(f"fallback {knobs}: stream equal {got_stream == want_stream}, note {note!r}")
+        if not any("falling back to the portable engine" in str(w.message) for w in caught):
+            raise AssertionError(f"fallback {knobs}: no warning")
+        if any(m.LAUNCHES for m in mods):
+            raise AssertionError(f"fallback {knobs}: a kernel was launched")
+        reset_counts()
+        try:
+            runtime.compress(fb_data, TorchCodecConfig(engine="cuda", strict_engine=True, **knobs))
+        except SnappyError as e:
+            if e.status != SnappyStatus.BAD_ARGUMENT or any(m.LAUNCHES for m in mods):
+                raise AssertionError(f"strict {knobs}: {e.status}, launches {[m.LAUNCHES for m in mods]}") from e
+        else:
+            raise AssertionError(f"strict {knobs}: compressed")
+        log(f"  cuda engine {knobs}: falls back with a warning, note {note!r}, the portable stream, no kernel "
+            f"launched; strict_engine raises before any launch")
+        out["fallback"][json.dumps(knobs)] = note
+    return out
+
+
 def run_cli(argv: list[str], cwd: str) -> tuple[dict, str]:
     """One run of the port's CLI in a process of its own; returns (its
     kernels' launch counts and exit code, its stdout) and raises if it
@@ -949,10 +1110,11 @@ def main() -> int:
 
     # 8. Encode error path.
     log("phase 8: encode error path")
-    refused = (
-        dict(block_size=WIDE_BS, matcher="sweep"), dict(block_size=16384 + 128, matcher="sweep"),
-        dict(SWEEP_MAIN, block_size=SWEEP_BS + 128), dict(block_size=1000), dict(sort_window=65536),
-        dict(block_size=24576, sort_window=65536),
+    refused = (  # outside the envelope only under strict_engine (phase 18 runs the fallback)
+        dict(block_size=WIDE_BS, matcher="sweep", strict_engine=True),
+        dict(block_size=16384 + 128, matcher="sweep", strict_engine=True),
+        dict(SWEEP_MAIN, block_size=SWEEP_BS + 128), dict(block_size=1000, strict_engine=True),
+        dict(sort_window=65536), dict(block_size=24576, sort_window=65536),
     )
     mods = (hopper_decode, hopper_match, hopper_sweep, hopper_encode)
     for knobs in refused:
@@ -1090,6 +1252,12 @@ def main() -> int:
     t0 = time.perf_counter()
     piped = pipelined_phase(stream, payload, comp)
     log(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
+
+    # 18. The portable engine.
+    log(f"phase 18: the portable engine at bs {BS} and {WIDE_BS} ({card})")
+    t0 = time.perf_counter()
+    portable = portable_phase(payload, wide_payload, stream, wide_stream, device, card)
+    log(f"  phase 18 in {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, max_err, ms, plain_ms, work, **extra):
@@ -1126,6 +1294,7 @@ def main() -> int:
                 "share": st["match_bound"]["bound_ms"] / st["match_ms"]}
 
     gather_steps = probes["stats"]["gather_chain"]["steps"]
+    print(json.dumps({"portable": portable}))
     print(json.dumps({"probes": probes_summary(probes, card)}))
     print(json.dumps({"kernels": [
         entry(

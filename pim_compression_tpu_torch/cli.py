@@ -9,11 +9,13 @@ Flag-compatible with the reference binary and with the JAX package's CLI:
     -i <file>   input file (required)
     -o <file>   output file (default "output.txt")
 
-``--engine {oracle,native,torch,cuda}``: ``cuda`` (the hand-written Hopper
-kernels) is the default, so the entry point runs on the GPU unless asked
-otherwise; ``torch`` runs their plain PyTorch versions on the CPU,
-``native`` the C++ host codec (the reference CLI's default without ``-d``),
-``oracle`` the pure-Python codec. Every matcher flag of the JAX CLI is
+``--engine {oracle,native,torch,cuda,portable}``: ``cuda`` (the
+hand-written Hopper kernels) is the default, so the entry point runs on the
+GPU unless asked otherwise; ``portable`` (the JAX CLI's ``xla`` engine, in
+plain PyTorch ops) runs on the GPU too; ``torch`` runs the kernels' plain
+PyTorch versions on the CPU, ``native`` the C++ host codec (the reference
+CLI's default without ``-d``), ``oracle`` the pure-Python codec. Without a
+GPU, ``cuda`` and ``portable`` exit 2 and write nothing. Every matcher flag of the JAX CLI is
 taken, with its meaning; a flag passed explicitly overrides ``--preset``.
 The human output keeps the reference's stdout contract (its benchmark
 scripts parse "Compression ratio:" and the per-phase lines): the ratio is
@@ -53,9 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-i", required=True, metavar="IN", help="input file")
     p.add_argument("-o", default="output.txt", metavar="OUT", help="output file")
     p.add_argument(
-        "--engine", choices=["oracle", "native", "torch", "cuda"], default=None,
-        help="codec engine (default: cuda, the Hopper kernels; torch = their plain PyTorch "
-        "versions on the CPU; native = the C++ host codec, the reference's host default)",
+        "--engine", choices=["oracle", "native", "torch", "cuda", "portable"], default=None,
+        help="codec engine (default: cuda, the Hopper kernels; portable = the JAX CLI's xla "
+        "engine in plain PyTorch ops on the GPU; torch = the kernels' plain PyTorch versions on "
+        "the CPU; native = the C++ host codec, the reference's host default)",
     )
     p.add_argument("--threads", type=int, default=0, help="native engine threads")
     p.add_argument("--window", type=int, default=None,
@@ -163,8 +166,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--strict-engine", action="store_true",
-        help="accepted for the JAX CLI's sake: the port never falls back to another engine; "
-        "what its kernels do not cover fails with an error",
+        help="compress: fail (exit 2) where the cuda or torch engine would fall back to the "
+        "portable engine (a block size outside [256, 65536] or not a multiple of 128, the sweep "
+        "matcher above 16384), instead of warning and falling back; decompress never falls back",
     )
     p.add_argument(
         "--pipeline-depth", type=int, default=2,
@@ -174,8 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", help="emit structured metrics")
     p.add_argument(
         "--profile", metavar="DIR", default=None,
-        help="write a torch.profiler trace of the codec run (with CUDA activity on the cuda "
-        "engine) to DIR/trace.json",
+        help="write a torch.profiler trace of the codec run (with CUDA activity on the cuda and "
+        "portable engines) to DIR/trace.json",
     )
     return p
 
@@ -291,7 +295,7 @@ def _profiler(engine: str):
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if engine == "cuda" and torch.cuda.is_available():
+    if engine in ("cuda", "portable") and torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     return torch.profiler.profile(activities=activities)
 

@@ -37,6 +37,28 @@ WIDE_SEL_CAP = 16  # the select cap the reference's 64 KB rule defaults to
 LAUNCHES = 0
 
 
+def envelope_gap(config) -> str | None:
+    """Why ``config`` lies outside the encode kernels' envelope, or None.
+
+    The reference's ``_pallas_envelope_gap`` for encode
+    (``runtime/api.py:38-70``), checked in its order: the block-size range
+    [256, 65536], a multiple of 128, the sweep matcher above 16384, and the
+    wide (64 KB) emit path without the sorted matcher (which the sweep's
+    check already covers). The reference's sorted->sweep switch for sizes
+    whose padded power of two exceeds 65536 has no size to act on here.
+    """
+    bs = config.block_size
+    if not MIN_BLOCK_SIZE <= bs <= MAX_BLOCK_SIZE:
+        return f"block_size outside [{MIN_BLOCK_SIZE}, {MAX_BLOCK_SIZE}]"
+    if bs % 128:
+        return "block_size must be a multiple of 128"
+    if config.matcher == "sweep" and bs > hopper_sweep.MAX_SWEEP_BLOCK:
+        return f"sweep matcher supports block_size <= {hopper_sweep.MAX_SWEEP_BLOCK} (the sweep envelope)"
+    if config.matcher != "sorted" and bs > NARROW_BLOCK_SIZE:
+        return "the wide (64K) emit path needs the sorted matcher"
+    return None
+
+
 def encode_knobs(config, notes: dict | None = None) -> dict:
     """The matcher knobs of a ``TorchCodecConfig`` on the ported path.
 
@@ -52,30 +74,30 @@ def encode_knobs(config, notes: dict | None = None) -> dict:
     and the per-rung ladder otherwise; each rung's stride is
     ``rung_strides`` or, for rungs of ``stride2_min`` bytes and up, 2; and
     ``sort_window`` passes as it is. Raises ``SnappyError(BAD_ARGUMENT)``
-    for a block size outside the envelope (256 <= bs <= 65536, bs % 128 ==
-    0), for the sweep above 16384 (where the reference falls back to its
-    unported ``xla`` engine) or granular at a block size that is not a
-    multiple of 256, and for a knob the reference's sorted matcher refuses
-    too (a ``sort_window`` that does not divide the padded sort size, a
-    ``sel_cap`` above ``ext_cap`` after the 64 KB switch). Nothing reroutes.
+    outside the envelope (``envelope_gap``: there ``runtime.compress``
+    takes the portable engine instead, or raises under ``strict_engine``,
+    before it asks for the knobs), for granular at a block size that is not
+    a multiple of 256, and for a knob the reference's sorted matcher
+    refuses too (a ``sort_window`` that does not divide the padded sort
+    size, a ``sel_cap`` above ``ext_cap`` after the 64 KB switch).
     """
     bs = config.block_size
+    gap = envelope_gap(config)
+    if gap is not None:
+        raise SnappyError(
+            SnappyStatus.BAD_ARGUMENT, f"encode: {gap} (block_size {bs}); runtime.compress takes the portable engine there"
+        )
     sel_cap, sel_all = config.sel_cap, config.sel_all
     wide_select = bs > NARROW_BLOCK_SIZE and not (sel_all and sel_cap)
     if wide_select:
         sel_cap, sel_all = sel_cap or WIDE_SEL_CAP, True
-    if bs < MIN_BLOCK_SIZE or bs > MAX_BLOCK_SIZE or bs % 128:
-        gap = f"block_size {bs}: the encoder takes multiples of 128 in [{MIN_BLOCK_SIZE}, {MAX_BLOCK_SIZE}]"
-    elif config.matcher == "sweep":
+    if config.matcher == "sweep":
         try:
             return dict(matcher="sweep", **hopper_sweep.sweep_knobs(
                 bs, config.match_window, config.coarse_window, config.coarse_mode == "granular",
             ))
         except ValueError as e:
-            gap = f"matcher 'sweep' at block_size {bs}: {e} (the sweep envelope"
-            if bs > hopper_sweep.MAX_SWEEP_BLOCK:
-                gap += "; the reference falls back to its xla engine there, not ported, ROADMAP §A, the portable engine"
-            gap += ")"
+            gap = f"matcher 'sweep' at block_size {bs}: {e} (the sweep envelope; the reference refuses it too)"
     else:
         rungs = tuple(config.rungs or hopper_match.RUNGS)
         if config.rung_strides:

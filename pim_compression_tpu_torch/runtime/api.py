@@ -6,12 +6,23 @@ Engines:
 - ``cuda``: the hand-written Hopper kernels (match or sweep, emit, decode)
   on one CUDA device.
 - ``torch``: their plain PyTorch versions, on the CPU or a GPU.
+- ``portable``: the reference's ``xla`` engine (``ops/decode.py``,
+  ``ops/encode.py``: plain PyTorch tensor ops, no hand-written kernel), on
+  a GPU or, when asked, the CPU.
 
-Ported from ``pim_compression_tpu.runtime.api``. The device engines emit
-the same streams as the reference's ``pallas`` engine at the same config.
+Ported from ``pim_compression_tpu.runtime.api``. The ``cuda`` and ``torch``
+engines emit the same streams as the reference's ``pallas`` engine at the
+same config, the ``portable`` engine the same as its ``xla`` engine. Where
+the reference's ``pallas`` engine falls back to ``xla`` on compress (outside
+the kernels' envelope, ``_envelope_fallback``), the ``cuda`` and ``torch``
+engines fall back to ``portable`` on the same device, loudly, or raise
+under ``strict_engine``.
 """
 
 from __future__ import annotations
+
+import functools
+import warnings
 
 import numpy as np
 import torch
@@ -20,6 +31,7 @@ from pim_compression_tpu_torch import native
 from pim_compression_tpu_torch.format import oracle
 from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 from pim_compression_tpu_torch.ops import _build, hopper_decode, hopper_encode
+from pim_compression_tpu_torch.ops import decode as decode_ops, encode as encode_ops
 from pim_compression_tpu_torch.parallel import resolve_device
 from pim_compression_tpu_torch.runtime import pipeline, staging
 from pim_compression_tpu_torch.runtime.profiling import PhaseTimer
@@ -33,6 +45,40 @@ def _schedule(config: TorchCodecConfig, count: int) -> tuple[int, bool, int]:
     depth = max(1, config.pipeline_depth)
     sync = depth <= 1 or count <= 1
     return (1, True, 1) if sync else (depth, False, min(depth, count))
+
+
+def _envelope_fallback(config: TorchCodecConfig) -> tuple[str, str] | None:
+    """The encode envelope's gap for the ``cuda`` and ``torch`` engines, or
+    None: the reference's ``_pallas_or_fallback`` (``runtime/api.py:38-98``)
+    for compress. On a gap it raises ``SnappyError(BAD_ARGUMENT)`` under
+    ``strict_engine`` (before any device work), and otherwise returns the
+    gap and the warning's message, and the caller compresses on the
+    ``portable`` engine instead. Keyed on the envelope alone: a kernel that
+    fails to build or launch raises and never falls back."""
+    if config.engine not in ("cuda", "torch"):
+        return None
+    gap = hopper_encode.envelope_gap(config)
+    if gap is None:
+        return None
+    msg = (
+        f"{config.engine} engine: {gap} (block_size {config.block_size}) — falling back "
+        "to the portable engine"
+    )
+    if config.strict_engine:
+        raise SnappyError(SnappyStatus.BAD_ARGUMENT, msg)
+    return gap, msg
+
+
+def _decode_portable(comp, comp_len, out_len, *, block_size: int):
+    """``decode_ops.decode_blocks`` on the slots with every byte at or past
+    a block's ``comp_len`` zeroed first: the staging slots hold stale bytes
+    there, which the portable decode's speculative tags can read for a
+    malformed block, so its error bits and (with ``validate=False``) its
+    bytes would follow the slot's history. Zeroed, they are those of the
+    reference's decode on freshly zeroed slots."""
+    col = torch.arange(comp.shape[1], dtype=torch.int32, device=comp.device)
+    comp = torch.where(col < comp_len[:, None], comp, 0)
+    return decode_ops.decode_blocks(comp, comp_len, out_len, block_size=block_size)
 
 
 def _runs(idx: np.ndarray) -> list[tuple[int, int, int]]:
@@ -110,7 +156,10 @@ def decompress(
                    "out_len": ((rows,), torch.int32)},
             "out": {"out": ((rows, block_size), torch.uint8), "err": ((rows,), torch.int32)},
         })
-    decode = hopper_decode.decode_blocks if config.engine == "cuda" else hopper_decode.decode_blocks_torch
+    decode = {
+        "cuda": hopper_decode.decode_blocks, "torch": hopper_decode.decode_blocks_torch,
+        "portable": _decode_portable,
+    }[config.engine]
 
     def fetch(slot, n, out, err):  # enqueue the d2h copies on the slot's stream
         slot.mark("d2h")
@@ -190,15 +239,21 @@ def compress(
     batches of ``config.batch_blocks`` (plus a tail batch), each h2d ->
     match + emit -> d2h through a slot of the device's staging ring, with up
     to ``config.pipeline_depth`` batches in flight and the phases timed as
-    ``decompress`` says. The sorted matcher in every mode
-    (rung pick, ``sel_all`` select ladder, per-rung ladder; any rung
-    strides and sort window) at 256 <= block_size <= 65536 (a multiple of
-    128) is ported, with the reference's switch to the select ladder above
-    32768 (``timer.notes["wide_select"]``), and so is the sweep matcher
-    (``matcher="sweep"``: ``match_window``, ``coarse_window``, sampled or
-    granular ``coarse_mode``) at block_size <= 16384 (granular at multiples
-    of 256); any other size or knob raises ``SnappyError(BAD_ARGUMENT)``
-    (``hopper_encode.encode_knobs``) and nothing falls back. Empty input
+    ``decompress`` says. On the ``cuda`` and ``torch`` engines the sorted
+    matcher in every mode (rung pick, ``sel_all`` select ladder, per-rung
+    ladder; any rung strides and sort window) at 256 <= block_size <= 65536
+    (a multiple of 128) is ported, with the reference's switch to the
+    select ladder above 32768 (``timer.notes["wide_select"]``), and so is
+    the sweep matcher (``matcher="sweep"``: ``match_window``,
+    ``coarse_window``, sampled or granular ``coarse_mode``) at block_size
+    <= 16384 (granular at multiples of 256). Outside that envelope
+    (``hopper_encode.envelope_gap``), as the reference's ``pallas`` engine
+    falls back to ``xla``, they warn, note
+    ``timer.notes["engine_fallback"]`` and compress on the ``portable``
+    engine on the same device, or raise ``SnappyError(BAD_ARGUMENT)``
+    under ``config.strict_engine`` before any launch; a knob the
+    reference refuses too raises (``hopper_encode.encode_knobs``). The
+    ``portable`` engine takes every block size. Empty input
     gives the header-only stream before any of these checks, on every
     engine, with or without a device, as in the reference. With
     ``config.verify``, each batch is decoded again on its device and
@@ -220,9 +275,15 @@ def compress(
     if not data:  # the header-only stream, before the knobs and the device, as the reference returns it
         with timer.phase("pre"):
             return oracle.compress(b"", block_size)
+    fallback = _envelope_fallback(config)
+    engine = "portable" if fallback else config.engine
     select_notes: dict = {}
-    knobs = hopper_encode.encode_knobs(config, select_notes)
-    device = resolve_device(config.engine, config.device)
+    knobs = hopper_encode.encode_knobs(config, select_notes) if engine != "portable" else {}
+    device = resolve_device(config.engine, config.device)  # a fallback stays on the engine's device
+    if fallback:
+        gap, msg = fallback
+        warnings.warn(msg, stacklevel=2)
+        timer.notes["engine_fallback"] = f"{config.engine}->portable ({gap})"
     cap = pipeline.padded_capacity(block_size)
 
     with timer.phase("pre"):
@@ -243,7 +304,7 @@ def compress(
     depth, sync, slots = _schedule(config, count)
     rows = min(batch, dev_idx.size)
     with timer.phase("compile"):
-        if config.engine == "cuda":
+        if engine == "cuda":
             _build.load()
         # No batch when the triage diverted every block: no device work at all.
         ring = staging.acquire(device, slots, {
@@ -251,10 +312,17 @@ def compress(
             "out": {"comp": ((rows, cap), torch.uint8), "sizes": ((rows,), torch.int32),
                     "bad": ((rows,), torch.int32)},
         }) if count else None
-    if config.engine == "cuda":
-        encode, decode = hopper_encode.encode_blocks, hopper_decode.decode_blocks
+    if engine == "cuda":
+        encode, decode = functools.partial(hopper_encode.encode_blocks, cap=cap, **knobs), hopper_decode.decode_blocks
+    elif engine == "torch":
+        encode = functools.partial(hopper_encode.encode_blocks_torch, cap=cap, **knobs)
+        decode = hopper_decode.decode_blocks_torch
     else:
-        encode, decode = hopper_encode.encode_blocks_torch, hopper_decode.decode_blocks_torch
+        # Only block_size, as the reference's runtime calls it
+        # (runtime/api.py:409-411): the defaults prev_k=2, sel_cap=16 make
+        # the xla engine's stream, and any other value would move it.
+        encode = functools.partial(encode_ops.encode_blocks, block_size=block_size)
+        decode = decode_ops.decode_blocks
 
     def fetch(slot, n, comp_d, sizes_d, bad_d):  # enqueue the d2h copies on the slot's stream
         slot.mark("d2h")
@@ -289,7 +357,7 @@ def compress(
                 slot.synchronize()
         with timer.phase("kernel"):
             with slot.on_stream():
-                comp_d, sizes_d = encode(blocks_d, lens_d, cap=cap, **knobs)
+                comp_d, sizes_d = encode(blocks_d, lens_d)
                 bad_d = None
                 if config.verify:
                     out_v, err_v = decode(comp_d, sizes_d, lens_d, block_size=block_size)

@@ -14,13 +14,15 @@ import dataclasses
 
 from pim_compression_tpu_torch.format import constants as C
 
-ENGINES = ("cuda", "torch", "native", "oracle")
+ENGINES = ("cuda", "torch", "portable", "native", "oracle")
 
 # Reference engine -> port engine. The Pallas kernels become the Hopper
 # kernels, whose plain PyTorch versions (the "torch" engine) give the same
-# stream. The portable XLA engine emits another stream and has no port yet.
+# stream; the portable XLA engine becomes the "portable" engine (plain
+# PyTorch ops, ops/{primitives,decode,encode}.py), which gives its stream.
 _FROM_REFERENCE_ENGINE = {
     "pallas": "cuda",
+    "xla": "portable",
     "native": "native",
     "oracle": "oracle",
 }
@@ -89,8 +91,10 @@ class TorchCodecConfig:
     block_size: decompressed bytes per independent block (reference default
         32 KB, max 64 KB — ``dpu_snappy.c:100``).
     batch_blocks: blocks per device dispatch.
-    engine: "cuda" (hand-written Hopper kernels), "torch" (plain PyTorch on
-        CPU or GPU), "native" (C++ host codec), "oracle" (pure Python).
+    engine: "cuda" (hand-written Hopper kernels), "torch" (their plain
+        PyTorch versions, CPU or GPU), "portable" (the reference's xla
+        engine in plain PyTorch ops, GPU or, when asked, CPU), "native"
+        (C++ host codec), "oracle" (pure Python).
     num_threads: host-codec thread fan-out (0 = all CPUs).
     device: see the field. Every other field keeps the reference's meaning
         and checks.
@@ -227,7 +231,13 @@ class TorchCodecConfig:
     pipeline_depth: int = 2
     # When True, engine="pallas" raises instead of silently falling back to
     # the xla kernels for block sizes beyond the pallas envelope.
-    # The port ignores it: it never falls back, it raises BAD_ARGUMENT.
+    # In the port: compress on the "cuda" or "torch" engine outside the
+    # encode kernels' envelope (hopper_encode.envelope_gap: a block size
+    # outside [256, 65536] or not a multiple of 128, the sweep above 16384)
+    # raises BAD_ARGUMENT before any launch, where it would otherwise warn,
+    # note timer.notes["engine_fallback"] and compress on the "portable"
+    # engine on the same device. Decode runs its kernels at every block
+    # size, so it never falls back and this never raises there.
     strict_engine: bool = False
     # Devices in the 1-D block mesh (None = all local devices). The scaling
     # sweep's analog of the reference's NR_DPUS axis
@@ -235,7 +245,8 @@ class TorchCodecConfig:
     # The port ignores it: it runs on one device (ROADMAP §A, devices and processes).
     mesh_devices: int | None = None
     # The port's device: a torch.device or device string; None means cuda:0
-    # for the "cuda" engine and the CPU for "torch". Host engines ignore it.
+    # for the "cuda" and "portable" engines and the CPU for "torch" (the
+    # portable engine runs on the CPU only when asked). Host engines ignore it.
     device: "torch.device | str | None" = None
 
     @property
@@ -306,18 +317,9 @@ class TorchCodecConfig:
 
     @classmethod
     def from_reference(cls, cfg, device=None) -> "TorchCodecConfig":
-        """Map a reference ``CodecConfig`` onto the port (pallas -> cuda),
-        reading its fields by name.
-
-        Raises ``ValueError`` for the reference's ``xla`` engine: the port
-        has nothing that emits its stream until the portable engine is
-        ported (ROADMAP §A, the portable engine).
-        """
-        if cfg.engine not in _FROM_REFERENCE_ENGINE:
-            raise ValueError(
-                f"the reference's {cfg.engine!r} engine is not ported yet "
-                "(ROADMAP §A, the portable engine)"
-            )
+        """Map a reference ``CodecConfig`` onto the port (pallas -> cuda,
+        xla -> portable, the host engines to themselves), reading its
+        fields by name."""
         names = [f.name for f in dataclasses.fields(cls) if f.name not in ("engine", "device")]
         fields = {name: getattr(cfg, name) for name in names}
         return cls(**fields, engine=_FROM_REFERENCE_ENGINE[cfg.engine], device=device)

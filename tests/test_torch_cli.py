@@ -82,7 +82,7 @@ def test_cli_stdout_contract_and_json(engine, text, tmp_path, capsys):
         (["-c", "--engine", "torch", "--rungs", "4,12"], 2, "rungs"),
         (["-c", "--engine", "torch", "--rung-strides", "1,x"], 2, "invalid literal"),
         (["-c", "-b", "1024", "--engine", "torch", "--sort-window", "2048"], 2, "padded sort size"),
-        (["-c", "-b", "1000", "--engine", "torch"], 2, "multiples of 128"),
+        (["-c", "-b", "1000", "--engine", "torch", "--strict-engine"], 2, "multiple of 128"),
         (["--engine", "torch", "-b", "1024"], 1, "error"),  # the input is no stream
     ],
     ids=["missing-input", "bad-block-size", "bad-rungs", "bad-strides", "window-past-block", "bs-1000",

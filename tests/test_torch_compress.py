@@ -10,6 +10,7 @@ round trip is in ``test_torch_cuda.py``.
 
 from __future__ import annotations
 
+import dataclasses
 import random
 
 import numpy as np
@@ -175,8 +176,11 @@ def test_empty_input_returns_before_any_check(engine, block_size, monkeypatch):
     # The reference returns the header-only stream, and b"" for a stream of
     # no blocks, before it checks the block size or looks for a device
     # (pim_compression_tpu/runtime/api.py:154-160, :280-285). So does the
-    # port: at a block size its encoder refuses, and on the cuda engine
-    # without a GPU. Non-empty input at that size is still refused.
+    # port: at a block size outside its kernels' envelope, and on the cuda
+    # engine without a GPU. Non-empty input at that size takes the portable
+    # engine on the torch engine's device, with a warning, as the
+    # reference's pallas engine takes its xla engine; the cuda engine
+    # without a GPU still refuses it.
     from pim_compression_tpu import runtime as ref_runtime
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -191,6 +195,9 @@ def test_empty_input_returns_before_any_check(engine, block_size, monkeypatch):
     data = b"not empty " * 300
     if engine == "torch" and block_size == 32768:  # on the path: compressed
         assert oracle.decompress(bytes(runtime.compress(data, cfg))) == data
+    elif engine == "torch":
+        with pytest.warns(UserWarning, match="falling back to the portable engine"):
+            assert oracle.decompress(bytes(runtime.compress(data, cfg))) == data
     else:
         with pytest.raises(SnappyError) as e:
             runtime.compress(data, cfg)
@@ -259,7 +266,8 @@ def test_torch_compress_64k_equals_the_spec(knobs):
 
 
 # ---------------------------------------------------------------------------
-# What is off the path an engine can run raises; nothing falls back.
+# What is off the kernels' path: the envelope falls back to the portable
+# engine (or raises under strict_engine); a knob the reference refuses raises.
 # ---------------------------------------------------------------------------
 
 # The sorted matcher's sort modes and ladders, ported: refused on the cuda
@@ -270,9 +278,13 @@ PORTED_KNOBS = {
     "rung-strides": dict(rung_strides=(1, 2)), "sort-window": dict(sort_window=512),
     "no-rung-pick": dict(rung_pick=False),
 }
-REFUSED_KNOBS = {
+# Outside the kernels' envelope (hopper_encode.envelope_gap): the reference's
+# pallas engine falls back to its xla engine there, the port to portable.
+FALLBACK_KNOBS = {
     "bs-65536": dict(block_size=65536, matcher="sweep"), "bs-1000": dict(block_size=1000),
     "bs-128": dict(block_size=128), "sweep": dict(matcher="sweep"),
+}
+REFUSED_KNOBS = {
     # A window must divide the block's padded sort size, as in the reference.
     "window-past-block": dict(sort_window=65536), "window-past-1024": dict(block_size=1024, sort_window=2048),
     "window-past-24576": dict(block_size=24576, sort_window=65536),
@@ -301,18 +313,30 @@ def _spec_stream(data: bytes, cfg: TorchCodecConfig) -> bytes:
 
 
 @pytest.mark.parametrize("engine", ["cuda", "torch"])
-@pytest.mark.parametrize("knobs", [*PORTED_KNOBS.values(), *REFUSED_KNOBS.values()],
-                         ids=[*PORTED_KNOBS, *REFUSED_KNOBS])
+@pytest.mark.parametrize("knobs", [*PORTED_KNOBS.values(), *FALLBACK_KNOBS.values(), *REFUSED_KNOBS.values()],
+                         ids=[*PORTED_KNOBS, *FALLBACK_KNOBS, *REFUSED_KNOBS])
 def test_off_path_knobs_raise_bad_argument(engine, knobs, monkeypatch):
-    # Off the encoder's envelope both engines raise BAD_ARGUMENT before any
-    # launch; the cuda engine also without a GPU, for want of a device. The
-    # torch engine compresses the ported sort modes and ladders to the
-    # reference's stream.
+    # A knob the reference refuses raises BAD_ARGUMENT before any launch on
+    # both engines; the cuda engine raises without a GPU, for want of a
+    # device. The torch engine compresses the ported sort modes and ladders
+    # to the reference's stream, and outside the envelope falls back to the
+    # portable engine with a warning and a note, or raises BAD_ARGUMENT
+    # before any launch under strict_engine.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = b"off the ported path " * 100
     cfg = TorchCodecConfig(engine=engine, **knobs)
     launches = hopper_match.LAUNCHES, hopper_encode.LAUNCHES
-    if engine == "torch" and knobs in PORTED_KNOBS.values():
+    if knobs in FALLBACK_KNOBS.values():
+        with pytest.raises(SnappyError) as e:
+            runtime.compress(data, dataclasses.replace(cfg, strict_engine=True))
+        assert e.value.status == SnappyStatus.BAD_ARGUMENT and "falling back" in str(e.value)
+    if engine == "torch" and knobs in FALLBACK_KNOBS.values():
+        timer = runtime.PhaseTimer()
+        with pytest.warns(UserWarning, match="falling back to the portable engine"):
+            stream = runtime.compress(data, cfg, timer)
+        assert timer.notes["engine_fallback"].startswith("torch->portable (")
+        assert oracle.decompress(bytes(stream)) == data
+    elif engine == "torch" and knobs in PORTED_KNOBS.values():
         stream = runtime.compress(data, cfg)
         assert bytes(stream) == _spec_stream(data, cfg)
         assert oracle.decompress(bytes(stream)) == data
@@ -320,9 +344,7 @@ def test_off_path_knobs_raise_bad_argument(engine, knobs, monkeypatch):
         with pytest.raises(SnappyError) as e:
             runtime.compress(data, cfg)
         assert e.value.status == SnappyStatus.BAD_ARGUMENT
-        words = ("needs a CUDA device",) if knobs in PORTED_KNOBS.values() else (
-            "ROADMAP", "multiples of 128", "sweep envelope", "padded sort size"
-        )
+        words = ("needs a CUDA device",) if knobs not in REFUSED_KNOBS.values() else ("padded sort size",)
         assert any(w in str(e.value) for w in words), str(e.value)
     assert (hopper_match.LAUNCHES, hopper_encode.LAUNCHES) == launches
 

@@ -609,12 +609,14 @@ def test_cuda_batches_overlap(cuda_device, monkeypatch):
 
 
 SWEEP_8K = dict(block_size=8192, matcher="sweep", match_window=2048, coarse_window=8192, coarse_mode="granular")
+PORTABLE = dict(block_size=32768, engine="portable")
 
 
 @pytest.mark.parametrize(
     "direction, knobs",
-    [("decompress", dict(block_size=32768)), ("compress", dict(block_size=32768)), ("compress", SWEEP_8K)],
-    ids=["decompress", "compress", "compress-sweep"],
+    [("decompress", dict(block_size=32768)), ("compress", dict(block_size=32768)), ("compress", SWEEP_8K),
+     ("decompress", PORTABLE), ("compress", PORTABLE)],
+    ids=["decompress", "compress", "compress-sweep", "decompress-portable", "compress-portable"],
 )
 def test_cuda_nothing_waits_between_launch_and_drain(cuda_device, monkeypatch, direction, knobs):
     # CUDA's sync debug mode raises on a call that waits for the device (an
@@ -638,7 +640,7 @@ def test_cuda_nothing_waits_between_launch_and_drain(cuda_device, monkeypatch, d
         synchronize(device)
 
     data = _pipeline_payload()
-    cfg = TorchCodecConfig(engine="cuda", batch_blocks=2, pipeline_depth=2, verify=True, **knobs)
+    cfg = TorchCodecConfig(**{"engine": "cuda", **knobs}, batch_blocks=2, pipeline_depth=2, verify=True)
     stream = bytes(runtime.compress(data, cfg))
     monkeypatch.setattr(staging.Slot, "take", strict_take)
     monkeypatch.setattr(staging.Slot, "ready", drain_wait)
@@ -650,3 +652,58 @@ def test_cuda_nothing_waits_between_launch_and_drain(cuda_device, monkeypatch, d
             assert bytes(runtime.compress(data, cfg)) == stream
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# The portable engine (plain PyTorch ops, no hand kernel) and the fallback.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("block_size", [100, 1024, 32768, 65536])
+def test_cuda_portable_functions_equal_the_cpu(cuda_device, block_size):
+    from pim_compression_tpu_torch.ops import decode as decode_ops, encode as encode_ops
+
+    blocks, lens = streams.plain_blocks(block_size, 8, block_size)
+    cpu = (torch.from_numpy(blocks), torch.from_numpy(lens))
+    gpu = tuple(t.to(cuda_device) for t in cpu)
+    comp_c, sizes_c = encode_ops.encode_blocks(*cpu, block_size=block_size)
+    comp_g, sizes_g = encode_ops.encode_blocks(*gpu, block_size=block_size)
+    assert torch.equal(comp_g.cpu(), comp_c) and torch.equal(sizes_g.cpu(), sizes_c)
+    base = _blocks(_compress(streams.text_payload(4 * block_size, 2), block_size))
+    if block_size >= 256:
+        base += streams.hand_blocks(block_size)
+    args = _on_device(base + streams.block_mutants(base, random.Random(block_size), 48, block_size), block_size,
+                      cuda_device)
+    out_g, err_g = decode_ops.decode_blocks(*args, block_size=block_size)
+    out_c, err_c = decode_ops.decode_blocks(*(a.cpu() for a in args), block_size=block_size)
+    assert torch.equal(out_g.cpu(), out_c) and torch.equal(err_g.cpu(), err_c)
+    assert not err_c[: len(base)].any()
+
+
+def test_cuda_portable_engine_equals_the_cpu(cuda_device):
+    data = _pipeline_payload()
+    launches = hopper_match.LAUNCHES, hopper_sweep.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES
+    cfg = TorchCodecConfig(engine="portable", block_size=32768, batch_blocks=2, verify=True)
+    timer = runtime.PhaseTimer()
+    stream = bytes(runtime.compress(data, cfg, timer))
+    assert timer.notes == {"raw_blocks": 1}
+    assert stream == bytes(runtime.compress(data, dataclasses.replace(cfg, device="cpu")))
+    assert bytes(runtime.decompress(stream, cfg)) == data == oracle.decompress(stream)
+    assert (hopper_match.LAUNCHES, hopper_sweep.LAUNCHES, hopper_encode.LAUNCHES, hopper_decode.LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("knobs", [dict(block_size=32768, matcher="sweep"), dict(block_size=128)],
+                         ids=["sweep-32768", "bs-128"])
+def test_cuda_engine_falls_back_to_portable(cuda_device, knobs):
+    data = _pipeline_payload()[: 1 << 20]
+    want = bytes(runtime.compress(data, TorchCodecConfig(engine="portable", block_size=knobs["block_size"])))
+    mods = (hopper_match, hopper_sweep, hopper_encode, hopper_decode)
+    launches = [m.LAUNCHES for m in mods]
+    timer = runtime.PhaseTimer()
+    with pytest.warns(UserWarning, match="falling back to the portable engine"):
+        assert bytes(runtime.compress(data, TorchCodecConfig(engine="cuda", **knobs), timer)) == want
+    assert timer.notes["engine_fallback"].startswith("cuda->portable (")
+    with pytest.raises(SnappyError) as e:
+        runtime.compress(data, TorchCodecConfig(engine="cuda", strict_engine=True, **knobs))
+    assert "falling back" in str(e.value)
+    assert [m.LAUNCHES for m in mods] == launches

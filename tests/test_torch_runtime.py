@@ -55,7 +55,7 @@ def scan_path(request, monkeypatch):
 def test_config_defaults_and_engines():
     cfg = TorchCodecConfig()
     assert cfg.engine == "cuda" and cfg.device is None and cfg.batch_blocks == 1024
-    for engine in ("cuda", "torch", "native", "oracle"):
+    for engine in ("cuda", "torch", "portable", "native", "oracle"):
         assert TorchCodecConfig(engine=engine).engine == engine
     for engine in ("pallas", "xla", "gpu"):
         with pytest.raises(ValueError):
@@ -67,14 +67,10 @@ def test_config_defaults_and_engines():
 
 
 @pytest.mark.parametrize(
-    "ref_engine, engine", [("pallas", "cuda"), ("xla", None), ("native", "native"), ("oracle", "oracle")]
+    "ref_engine, engine", [("pallas", "cuda"), ("xla", "portable"), ("native", "native"), ("oracle", "oracle")]
 )
 def test_config_from_reference(ref_engine, engine):
     ref = CodecConfig(engine=ref_engine, block_size=8192, batch_blocks=64, validate=False, max_lag=4096)
-    if engine is None:  # the xla engine's stream has no port yet
-        with pytest.raises(ValueError, match="ROADMAP §A, the portable engine"):
-            TorchCodecConfig.from_reference(ref, device="cpu")
-        return
     cfg = TorchCodecConfig.from_reference(ref, device="cpu")
     assert not isinstance(cfg, CodecConfig)  # the port's own dataclass
     assert cfg.engine == engine and cfg.device == "cpu"

@@ -182,10 +182,14 @@ def test_torch_compress_sweep_equals_jax_pallas_stream():
 
 @pytest.mark.parametrize(
     "knobs",
-    [dict(block_size=32768), dict(block_size=16384 + 128), dict(block_size=384, match_window=64, coarse_window=1000, coarse_mode="granular")],
+    [dict(block_size=32768, strict_engine=True), dict(block_size=16384 + 128, strict_engine=True),
+     dict(block_size=384, match_window=64, coarse_window=1000, coarse_mode="granular")],
     ids=["bs-32768", "bs-16512", "granular-bs-384"],
 )
 def test_sweep_outside_its_envelope_raises(knobs):
+    # Above 16384 the reference falls back to its xla engine, and the port to
+    # its portable engine (test_torch_portable.py), unless strict_engine;
+    # granular at a size that is no multiple of 256 the reference refuses too.
     from pim_compression_tpu_torch.ops import hopper_match
     from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 
