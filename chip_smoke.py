@@ -143,22 +143,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
      parser on phase 14's CLI stdout, which must give the JSON line's phases
      and ratio. Its records make the "tooling" JSON line; its launches (this
      process and the ranks) join the kernels line as "phase 20".
-Phases 4, 7, 10, 12 and 14 run at the default pipeline depth, 2. Phases 18,
-19 and 20 run after the launch counts of the other phases are read.
+ 21. the measurement tools (pim_compression_tpu_torch/scripts/), in at most
+     MEASURE_BUDGET_S seconds: (a) the work ledger's port rows on the main
+     batches, whose decode, match and emit bounds must equal phases 4, 6, 9
+     and 10's (the kernels line's and phase 13's); (b) kernel_attrib on full
+     batches (the decode at 32 KB, the zero-flag config at 32 KB, config (e)
+     at 64 KB), whose parts and glue must add to the whole call within 5 %
+     and whose outputs must equal the runtime's; (c) pipeline_times at 32 KB,
+     both directions; (d) spec_ratio on 8 MB of the payload with the
+     zero-flag config on the cuda engine, whose total must equal the torch
+     engine's on the card and the runtime's stream without triage; (e)
+     validate --quick on config (a). Its records make the "measure" JSON
+     line; its launches join the kernels line as "phase 21".
+Phases 4, 7, 10, 12 and 14 run at the default pipeline depth, 2. Phases 18
+to 21 run after the launch counts of the other phases are read.
 Before the kernels line, a "portable" JSON line gives phase 18's records,
-a "devices" JSON line phase 19's, a "tooling" JSON line phase 20's,
-and a "probes" JSON line gives the card's measured
+a "devices" JSON line phase 19's, a "tooling" JSON line phase 20's, a
+"measure" JSON line phase 21's, and a "probes" JSON line gives the card's measured
 device copy rate and int32 rates beside the datasheet's (the bounds keep the
 datasheet's). The line before the last is a JSON summary of the kernels, each with its
-time, its plain version's, its launches on the main paths and its bound (the
-larger of the bytes it must move over the card's memory rate and the integer
-operations its inputs need over the card's integer rate: for the sorted
-matcher one table step per sorted row (ceil(bs / stride) of a rung) and
-candidate (prev_k on the 4-byte rung in the ladder modes) plus one word
-compare per 4 bytes of each output length; for the sweep one table step per position
-plus the pairs whose first words match, with the exhaustive loop's pairs
-beside; for a probe the steps its inputs take); the last line is
-{"ok": true, "device": {...}}.
+time, its plain version's, its launches on the main paths and its bound,
+counted by pim_compression_tpu_torch/scripts/work_ledger.py (decode_work,
+match_work, sweep_work, emit_work, probe_work: the larger of the bytes it
+must move over the card's memory rate and the integer operations its inputs
+need over the card's integer rate: for the sorted matcher one table step per
+sorted row (ceil(bs / stride) of a rung) and candidate (prev_k on the 4-byte
+rung in the ladder modes) plus one word compare per 4 bytes of each output
+length; for the sweep one table step per position plus the pairs whose
+first words match, with the exhaustive loop's pairs beside; for a probe the
+steps its inputs take); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -182,6 +195,7 @@ RANDOM_BLOCKS = (3, 100, 333, 512, 777, 1023, 1024, 1090)  # spliced into the co
 PIPE_BATCH = 128  # phase 17's batch: 9 batches each way at 32 KB
 PIPE_DEPTHS = (1, 2, 4)
 PIPE_CORRUPT = (300, 700)  # in the 3rd and the 6th of phase 17's batches
+MEASURE_BUDGET_S = 90  # phase 21's
 # A launcher's touched buffer while it runs ranks (phases 19 (b) and 20 (c)):
 # it lifts this process's VmHWM, whose half is the bar for each rank's peak
 # RSS, to well above any rank's own peak, and a rank that reported its
@@ -227,18 +241,6 @@ CLI_RUN = (
     "                  'sweep': hopper_sweep.LAUNCHES, 'emit': hopper_encode.LAUNCHES}))\n"
 )
 
-# The card's rates for the bounds (H100 SXM): device memory 3.35 TB/s (the
-# datasheet), and int32 operations at the issue limit, one warp instruction
-# per scheduler per clock (4 x 32 = 128 lanes per SM) on 132 SMs at the 1.98
-# GHz boost clock. The 64 INT32 lanes per SM alone (16.73e12 ops/s) are no
-# bound: integer multiplies issue to the FMA pipe beside them, and phase 15's
-# mix rounds and elementwise chain run above that rate. The codec's kernels
-# are integer-only; no tensor-core rate applies.
-HBM_BYTES_PER_S = 3.35e12
-INT32_LANES_PER_S = 132 * 64 * 1.98e9
-INT32_OPS_PER_S = 132 * 128 * 1.98e9
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -254,18 +256,6 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-def bound(nbytes: int, ops: int) -> dict:
-    """The least time the card could take for the work: the larger of the
-    bytes the function must move (each input read once, each output written
-    once) over the memory rate and its integer operations over the int32
-    issue limit."""
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    return {
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes": nbytes, "ops": ops,
-    }
 
 
 def held_launcher_hwm(run):
@@ -329,6 +319,7 @@ def compare(name, args, block_size, expected=None, reps=5):
     import torch
 
     from pim_compression_tpu_torch.ops import hopper_decode
+    from pim_compression_tpu_torch.scripts import work_ledger
 
     out_k, err_k = hopper_decode.decode_blocks(*args, block_size=block_size)
     torch.cuda.synchronize()
@@ -351,11 +342,7 @@ def compare(name, args, block_size, expected=None, reps=5):
             if want is not None and (got != want or int(err_k[i])):
                 raise AssertionError(f"{name}: block {i} does not decode to the expected bytes")
     ms = cuda_ms(lambda: hopper_decode.decode_blocks(*args, block_size=block_size), reps)
-    # Payload bytes and both lengths read, every output row and verdict
-    # written; one operation per plaintext byte.
-    work = bound(
-        int(args[1].sum()) + 8 * nb + out_k.numel() + err_k.numel() * err_k.element_size(), int(args[2].sum())
-    )
+    work = work_ledger.decode_work(args[1], args[2], block_size)
     log(
         f"  {name}: {nb} blocks at bs {block_size}, {int(valid.sum())} valid, "
         f"verdicts equal, max abs err {max_err}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
@@ -376,6 +363,7 @@ def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
 
     from pim_compression_tpu_torch.ops import hopper_encode, hopper_match, hopper_sweep
     from pim_compression_tpu_torch.runtime import pipeline
+    from pim_compression_tpu_torch.scripts import work_ledger
 
     knobs = dict(knobs or {})
     sweep = knobs.pop("matcher", "sorted") == "sweep"
@@ -409,29 +397,14 @@ def compare_encode(name, blocks_np, lens_np, device, knobs=None, reps=5):
     match_ms = cuda_ms(lambda: match(blocks, lens, **knobs), reps)
     emit_ms = cuda_ms(lambda: hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap), reps)
     ratio = float(sizes.sum()) / max(1, int(lens.sum()))
-    # Bytes: blocks and lengths read, lengths and lags written (the emit
-    # reads all of them and writes each padded row and size). Operations the
-    # function needs: for the sweep one table step per position and the
-    # pairs whose first words match (the exhaustive loop's pairs reported
-    # beside); for the sorted matcher one table step per sorted row
-    # (ceil(bs / stride) of a rung) and candidate (prev_k on the 4-byte rung
-    # in the ladder modes) and one word compare per 4 bytes of each match
-    # length; for the emit one parse step per position.
-    match_bytes = 4 * nb * bs + 4 * nb
     extra = {}
     if sweep:
-        visited, first_word = hopper_sweep.sweep_pairs(blocks, lens, mlen, mlag, **knobs)
-        match_ops = nb * bs + first_word
-        extra = {"visited_pairs": visited, "first_word_pairs": first_word,
-                 "visited_bound": bound(match_bytes, visited)}
+        match_bound = work_ledger.sweep_work(blocks, lens, mlen, mlag, knobs)
+        extra = {k: match_bound.pop(k) for k in ("visited_pairs", "first_word_pairs", "visited_bound")}
     else:
-        rungs = knobs.get("rungs", (4, 16))
-        strides = knobs.get("strides") or (1,) * len(rungs)
-        ladder = knobs.get("sel_all") or not knobs.get("rung_pick", True)
-        steps = sum(-(-bs // s) * (knobs.get("prev_k", 1) if r == 4 and ladder else 1) for r, s in zip(rungs, strides))
-        match_ops = nb * steps + int(((mlen.long() + 3) >> 2).sum())
-    match_bound = bound(match_bytes, match_ops)
-    emit_bound = bound(nb * (4 * bs + cap) + 8 * nb, int(lens.sum()))
+        match_bound = work_ledger.match_work(mlen, knobs)
+    match_ops = match_bound["ops"]
+    emit_bound = work_ledger.emit_work(lens, bs, cap)
     label = "sweep" if sweep else "match"
     pairs = (f"; {extra['visited_pairs']} pairs visited (bound {extra['visited_bound']['bound_ms']:.4f} ms), "
              f"{extra['first_word_pairs']} with equal first words" if sweep else "")
@@ -476,6 +449,7 @@ def decompress_main(stream: bytes, payload: bytes, bs: int, device, plain: dict)
     from pim_compression_tpu_torch import TorchCodecConfig, runtime
     from pim_compression_tpu_torch.ops import hopper_decode
     from pim_compression_tpu_torch.runtime import pipeline
+    from pim_compression_tpu_torch.scripts import work_ledger
 
     cfg = TorchCodecConfig(engine="cuda", block_size=bs)
     info = pipeline.scan_frames(stream)
@@ -502,7 +476,7 @@ def decompress_main(stream: bytes, payload: bytes, bs: int, device, plain: dict)
     args = tuple(torch.from_numpy(a[:n]).to(device) for a in (comp, clen, olen))
     kernel_ms = cuda_ms(lambda: hopper_decode.decode_blocks(*args, block_size=bs), 20)
     batch_bytes = int(olen[:n].sum())
-    work = bound(int(clen[:n].sum()) + 8 * n + n * bs + 4 * n, batch_bytes)  # as in compare()
+    work = work_ledger.decode_work(clen[:n], olen[:n], bs)
     plain_gbs = plain["bytes"] / plain["plain_ms"] / 1e6
     log(f"  kernel only: {kernel_ms:.3f} ms per {n}-block batch, {batch_bytes / kernel_ms / 1e6:.3f} GB/s; "
         f"bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
@@ -926,6 +900,108 @@ def tooling_phase(payload: bytes, comp: dict, cli_runs: dict, card: str) -> dict
     return out
 
 
+def measure_phase(payload: bytes, wide_payload: bytes, dec: dict, wide_dec: dict, enc_batch: dict,
+                  wide_enc_batch: dict, card: str) -> dict:
+    """Phase 21: the measurement tools (pim_compression_tpu_torch/scripts/)
+    on the card. (a) the work ledger on the main batches; (b) kernel_attrib
+    on full batches; (c) pipeline_times at 32 KB; (d) spec_ratio on 8 MB,
+    the cuda engine against the torch engine on the card; (e) validate
+    --quick on config (a). Returns the records for its JSON line and the
+    phase's launches; raises on any failure."""
+    from pim_compression_tpu_torch import TorchCodecConfig, runtime
+    from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
+    from pim_compression_tpu_torch.scripts import kernel_attrib, pipeline_times, spec_ratio, validate, work_ledger
+
+    payloads = {BS: payload, WIDE_BS: wide_payload}
+    out = {"card": card, "seconds": {}}
+    reset_counts()
+
+    # (a) The ledger's port rows on the main batches: the phase-6 and phase-9
+    # batches (the kernels line's and phase 13's match and emit bounds) and
+    # the phase-4 and phase-10 decode batches.
+    t0 = time.perf_counter()
+    ledger = work_ledger.run("cuda:0", rows="port", payloads=payloads, decode_sizes=(BS, WIDE_BS))
+    rows = {(r["kernel"], r["config"]): r for r in ledger["rows"]}
+    want = {("decode", f"{BS} decode"): dec["bound"], ("decode", f"{WIDE_BS} decode"): wide_dec["bound"],
+            ("match", f"{BS} zero-flag"): enc_batch["match_bound"], ("emit", f"{BS} zero-flag"): enc_batch["emit_bound"],
+            ("match", f"{WIDE_BS} zero-flag"): wide_enc_batch["match_bound"],
+            ("emit", f"{WIDE_BS} zero-flag"): wide_enc_batch["emit_bound"]}
+    for key, bound in want.items():
+        if rows[key]["bound_ms"] != bound["bound_ms"] or rows[key]["ops"] != bound["ops"]:
+            raise AssertionError(f"work ledger {key}: {rows[key]['bound_ms']} ms, {rows[key]['ops']} ops; the "
+                                 f"kernels line's {bound['bound_ms']} ms, {bound['ops']} ops")
+    out["ledger"] = ledger["rows"]
+    out["seconds"]["a"] = time.perf_counter() - t0
+    log(f"  (a) work ledger: {len(ledger['rows'])} rows; the decode, match and emit bounds of phases 4, 6, 9 "
+        f"and 10 equal ({out['seconds']['a']:.1f} s)")
+    for r in ledger["rows"]:
+        log(f"  (a) {r['kernel']} {r['config']}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}), ceiling "
+            f"{r['ceiling_gbps']:.1f} GB/s")
+
+    # (b) Attribution on full batches: the parts and the glue add to the whole.
+    t0 = time.perf_counter()
+    attrib = kernel_attrib.run("cuda:0", names=[f"{BS} zero-flag", "config (e)"], decode_sizes=(BS,), fixed=False,
+                               payloads=payloads)
+    for r in attrib["records"]:
+        if abs(r["sum_over_whole"] - 1) > 0.05:
+            raise AssertionError(f"kernel_attrib {r['config']}: parts {r['sum_ms']} ms against the whole "
+                                 f"{r['whole_ms']} ms")
+        log(f"  (b) {r['config']}: whole {r['whole_ms']:.4f} ms, parts {r['sum_ms']:.4f} ms "
+            f"({r['sum_over_whole']:.4f}; calls with a host gap: {r['host_gap_calls']}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["parts_ms"].items())
+            + "; paced: " + ", ".join(f"{k} {v:.4f}" for k, v in r["paced"]["parts_ms"].items()))
+    out["attrib"] = attrib["records"]
+    out["seconds"]["b"] = time.perf_counter() - t0
+
+    # (c) The pipelines' slope at 32 KB beside the ledger's bound.
+    t0 = time.perf_counter()
+    out["pipeline"] = pipeline_times.run("cuda:0", names=[f"{BS} zero-flag"], payloads=payloads)["records"]
+    for r in out["pipeline"]:
+        if not r["device_gbps"]:
+            raise AssertionError(f"pipeline_times {r['direction']}: no slope ({r['per_group_s']} s a group)")
+        log(f"  (c) {r['direction']} {BS}: slope {r['device_gbps']:.3f} GB/s, bound {r['bound_gbps']:.1f} GB/s, "
+            f"ratio {r['slope_over_bound']:.4f}")
+    out["seconds"]["c"] = time.perf_counter() - t0
+
+    # (d) The ratio tool on 8 MB: the kernels' total is the plain versions'
+    # on the card, and the length of the runtime's stream without triage.
+    t0 = time.perf_counter()
+    sub = payload[: 8 << 20]
+    cfg = spec_ratio.parse_config("rungs=4,16 rung_pick=1 ext_cap=48 neighbor=1 max_lag=8192")  # the zero-flag config
+    total, cuda_s = spec_ratio.measure(sub, BS, cfg, engine="cuda")
+    plain_total, plain_s = spec_ratio.measure(sub, BS, cfg, engine="torch", device="cuda:0")
+    stream = runtime.compress(sub, TorchCodecConfig(engine="cuda", block_size=BS, raw_triage=False))
+    if not total == plain_total == len(stream):
+        raise AssertionError(f"spec_ratio: {total} bytes on cuda, {plain_total} on torch, the runtime's {len(stream)}")
+    out["spec_ratio"] = {"bytes": len(sub), "total": total, "ratio": 1 - total / len(sub), "cuda_s": cuda_s,
+                         "torch_s": plain_s}
+    out["seconds"]["d"] = time.perf_counter() - t0
+    log(f"  (d) spec_ratio, {len(sub)} bytes, zero-flag: {total} bytes (ratio {1 - total / len(sub):.4f}) on cuda "
+        f"({cuda_s:.2f} s) and on the torch engine on the card ({plain_s:.2f} s), the runtime's stream length")
+
+    # (e) Validation of config (a), quick.
+    t0 = time.perf_counter()
+    res = validate.run(validate.parse(["--bs", str(BS), "--matcher", "sorted", "--prev-k", "4", "--sel-cap", "16",
+                                       "--stride2-min", "16", "--ext-cap", "48", "--neighbor", "--max-lag", "8192",
+                                       "--quick", "--device", "cuda:0"]))
+    errs = (res["decode_max_abs_err"], res["match_max_abs_err"], res["emit_max_abs_err"])
+    if any(errs) or not (res["decode_bit_exact"] and res["encode_round_trip"] and res["encode_decodes_ok"]):
+        raise AssertionError(f"validate config (a): {res}")
+    out["validate"] = res
+    out["seconds"]["e"] = time.perf_counter() - t0
+    log(f"  (e) validate --quick, config (a): kernels equal their plain versions; decode {res['decode_gbps']:.3f} "
+        f"GB/s, encode {res['encode_gbps']:.3f} GB/s ({res['match_ms']:.3f} + {res['emit_ms']:.3f} ms), ratio "
+        f"{res['encode_ratio']:.4f}, round trip exact ({out['seconds']['e']:.1f} s)")
+
+    out["launches"] = {"match": hopper_match.LAUNCHES, "emit": hopper_encode.LAUNCHES, "sweep": hopper_sweep.LAUNCHES,
+                       "decode": hopper_decode.LAUNCHES}
+    missing = [k for k, n in out["launches"].items() if not n]
+    if missing:
+        raise AssertionError(f"phase 21 launched no {missing} kernel: {out['launches']}")
+    log(f"  launches: {out['launches']}")
+    return out
+
+
 def portable_batch(blocks, lens, bs: int, device) -> dict:
     """One batch of the portable engine's functions on the card: the
     device time of encode_blocks and decode_blocks (CUDA events, mean of 3
@@ -1164,7 +1240,7 @@ def probes_phase(device) -> dict:
     import torch
 
     from pim_compression_tpu_torch.ops import hopper_probes as hp
-    from pim_compression_tpu_torch.scripts import common, emu_calibrate, hw_probe, transfer_probe
+    from pim_compression_tpu_torch.scripts import common, emu_calibrate, hw_probe, transfer_probe, work_ledger
 
     common.warm(device)
     rng = np.random.default_rng(SEED)
@@ -1181,7 +1257,7 @@ def probes_phase(device) -> dict:
                                 ("ew_chain", hp.ew_chain, hp.ew_chain_torch)):
         compare_probe(f"{name} seeded x{steps}", kernel, plain, (xr, ir, steps), 1)
         st = compare_probe(f"{name} hw_probe inputs x{steps}", kernel, plain, (xg, ig, steps), 5)
-        st["bound"] = bound(2 * xg.numel() * 4 + 8 * hp.LANES * 4, 2 * xg.numel() * steps)
+        st["bound"] = work_ledger.probe_work(name, xg.shape[0], steps)
         st["steps"] = steps
         stats[name] = st
     for in_rows, out_rows in transfer_probe.COPY_ROWS:
@@ -1189,7 +1265,7 @@ def probes_phase(device) -> dict:
         st = compare_probe(f"copy_rows {in_rows} -> {out_rows} rows", hp.copy_rows, hp.copy_rows_torch,
                            (xs[0], out_rows), 20, [(x, out_rows) for x in xs])
         if (in_rows, out_rows) == PROBE_COPY:
-            st["bound"] = bound(transfer_probe.copy_bytes(in_rows, out_rows), 0)
+            st["bound"] = work_ledger.probe_work("copy_rows", in_rows, out_rows=out_rows)
             # The kernel and the one PyTorch call of the same function, x[:rows]
             # + 1, in turns in one loop on the same cold inputs; each round
             # times 20 queued launches of each.
@@ -1209,7 +1285,7 @@ def probes_phase(device) -> dict:
         x = int32(rows)
         st = compare_probe(f"mix_rounds ({rows}, 128) x{iters}", hp.mix_rounds, hp.mix_rounds_torch, (x, iters), 10)
         if iters == PROBE_MIX_ITERS:
-            st["bound"] = bound(x.numel() * 4 + 8 * hp.LANES * 4, 3 * iters * x.numel() + x.numel())
+            st["bound"] = work_ledger.probe_work("mix_rounds", rows, iters)
             stats["mix_rounds"] = st
     x = int32(8)
     for rows, iterate in emu_calibrate.POINTS:
@@ -1218,8 +1294,7 @@ def probes_phase(device) -> dict:
         st = compare_probe(f"chain_fold {rows} rows x{iterate}", hp.chain_fold, hp.chain_fold_torch,
                            (x, rows, iterate), 3)
         if (rows, iterate) == PROBE_CHAIN:
-            lanes = rows * hp.LANES
-            st["bound"] = bound(hp.LANES * 4 + 8 * hp.LANES * 4, 3 * iterate * lanes + lanes)
+            st["bound"] = work_ledger.probe_work("chain_fold", rows, iterate)
             stats["chain_fold"] = st
     for name, st in stats.items():
         log(f"  {name}: bound {st['bound']['bound_ms']:.4f} ms ({st['bound']['bound_by']}), "
@@ -1243,6 +1318,8 @@ def probes_summary(probes: dict, card: str) -> dict:
     datasheet's: the device copy at its main shape, the triad, the int32
     rate of the mix rounds at their longest and of the chain fit, the
     dependent steps, and the host copies at the main path's batch sizes."""
+    from pim_compression_tpu_torch.scripts import work_ledger
+
     transfer, hw, emu = (probes["records"][k] for k in ("transfer_probe", "hw_probe", "emu_calibrate"))
     copy_main = next(r for r in transfer if r["kind"] == "copy" and (r["in_mb"], r["out_mb"]) == tuple(
         rows * 512 / 1e6 for rows in PROBE_COPY))
@@ -1252,9 +1329,10 @@ def probes_summary(probes: dict, card: str) -> dict:
     return {
         "card": card, "device_copy_bytes_per_s": copy_main["kernel_bytes_per_s"],
         "triad_bytes_per_s": next(r for r in hw if r["probe"].startswith("triad"))["achieved_gbps"] * 1e9,
-        "datasheet_bytes_per_s": HBM_BYTES_PER_S,
+        "datasheet_bytes_per_s": work_ledger.HBM_BYTES_PER_S,
         "int32_ops_per_s": compute_main["int32_ops_per_s"], "int32_ops_per_s_fit": emu["int32_ops_per_s"],
-        "int32_lanes_ops_per_s": INT32_LANES_PER_S, "int32_issue_limit_ops_per_s": INT32_OPS_PER_S,
+        "int32_lanes_ops_per_s": work_ledger.INT32_LANES_PER_S,
+        "int32_issue_limit_ops_per_s": work_ledger.INT32_OPS_PER_S,
         "dependent_round_s": next(r for r in hw if r["probe"].startswith("dependent"))["round_s"],
         "gather_step_s": next(r for r in hw if r["probe"].startswith("gather chain"))["step_s"],
         "elementwise_step_s": next(r for r in hw if r["probe"].startswith("elementwise"))["step_s"],
@@ -1583,6 +1661,15 @@ def main() -> int:
     tools = tooling_phase(payload, comp, cli_runs, card)
     tools["seconds"] = time.perf_counter() - t0
     log(f"  phase 20 in {tools['seconds']:.1f} s")
+
+    # 21. The measurement tools.
+    log(f"phase 21: the measurement tools ({card})")
+    t0 = time.perf_counter()
+    measure = measure_phase(payload, wide_payload, dec, wide_dec, enc_batch, wide_enc_batch, card)
+    measure["seconds"]["all"] = time.perf_counter() - t0
+    log(f"  phase 21 in {measure['seconds']['all']:.1f} s")
+    if measure["seconds"]["all"] > MEASURE_BUDGET_S:
+        raise AssertionError(f"phase 21 took {measure['seconds']['all']:.1f} s, over its {MEASURE_BUDGET_S} s")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, max_err, ms, plain_ms, work, **extra):
@@ -1620,8 +1707,9 @@ def main() -> int:
                      for n, recs in devices["dryrun"].items() for rec in recs})
         return runs
 
-    def tooling_launches(kernel):  # phase 20: this process's runs and the bench's ranks
-        return {"phase 20": tools["launches"]["in_process"][kernel] + tools["launches"]["ranks"][kernel]}
+    def tooling_launches(kernel):  # phase 20: this process's runs and the bench's ranks; phase 21
+        return {"phase 20": tools["launches"]["in_process"][kernel] + tools["launches"]["ranks"][kernel],
+                "phase 21": measure["launches"][kernel]}
 
     def timing(st):
         return {"blocks": st["blocks"], "ms": st["match_ms"], "plain_ms": st["match_plain_ms"],
@@ -1632,6 +1720,7 @@ def main() -> int:
     print(json.dumps({"portable": portable}))
     print(json.dumps({"devices": devices}))
     print(json.dumps({"tooling": tools}))
+    print(json.dumps({"measure": measure}))
     print(json.dumps({"probes": probes_summary(probes, card)}))
     print(json.dumps({"kernels": [
         entry(
@@ -1665,7 +1754,7 @@ def main() -> int:
         entry(
             "sweep_blocks", "sweep.cu",
             ["pim_compression_tpu/ops/pallas_encode.py:101", "pim_compression_tpu/ops/pallas_encode.py:175"],
-            {str(SWEEP_BS): sweep_comp["launches"][0]},
+            {str(SWEEP_BS): sweep_comp["launches"][0], "phase 21": measure["launches"]["sweep"]},
             max(st["match_err"] for st in sweep_stats), sweep_batch["match_ms"], sweep_batch["match_plain_ms"],
             sweep_batch["match_bound"], visited_pairs=sweep_batch["visited_pairs"],
             first_word_pairs=sweep_batch["first_word_pairs"],

@@ -140,15 +140,19 @@ def cases() -> list[tuple[str, int, list, list | None]]:
             wide = blocks[:128] + hand
             wide += streams.block_mutants(wide, random.Random(SEED + 2), 48, bs)
             out.append((f"{bs} phase-3 batch, {len(wide)} blocks", bs, wide, len(wide) - 48))
-    fixed = fixed_blocks()
-    for name, block in fixed.items():
-        out.append((f"{FIXED_BS} fixed: {name}", FIXED_BS, [block] * BATCH, None))
+    out += fixed_cases()
     # The near copies at other batch sizes: one walk alone on the card, one
     # or two an SM scheduler, and every slot the kernel has.
-    near = fixed["copies, offsets <= 16 KB"]
+    near = fixed_blocks()["copies, offsets <= 16 KB"]
     for nb in RESIDENCY:
         out.append((f"{FIXED_BS} fixed: copies, offsets <= 16 KB, {nb} blocks", FIXED_BS, [near] * nb, None))
     return out
+
+
+def fixed_cases() -> list[tuple[str, int, list, None]]:
+    """The cases of ``cases`` that split a walk's cost by element: a batch of
+    ``BATCH`` copies of each of ``fixed_blocks``."""
+    return [(f"{FIXED_BS} fixed: {name}", FIXED_BS, [block] * BATCH, None) for name, block in fixed_blocks().items()]
 
 
 def counts(blocks, valid: int | None) -> dict:

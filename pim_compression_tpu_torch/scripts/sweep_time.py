@@ -14,9 +14,10 @@ collisions at every 4-aligned position, two letters (long chains, no early
 exit), a word at every 8-aligned position. Each time is the mean device
 time of 10 back-to-back launches by CUDA events. Each record carries a
 digest of the lengths and lags, which two versions of the kernel must
-share, the bound (the larger of the bytes the function moves over 3.35 TB/s
-and one operation per position plus one per pair whose first words match
-over the int32 issue rate) and its share of the time, and the build's
+share, the bound (``work_ledger.sweep_work``: the larger of the bytes the
+function moves over 3.35 TB/s and one operation per position plus one per
+pair whose first words match over the int32 issue rate) and its share of
+the time, and the build's
 ptxas line (registers, spills) and CTAs per SM.
 
 ``--parent DIR`` also builds ``DIR/pim_compression_tpu_torch/csrc/sweep.cu``
@@ -41,7 +42,7 @@ import pathlib
 
 import numpy as np
 
-from pim_compression_tpu_torch.scripts import common
+from pim_compression_tpu_torch.scripts import common, work_ledger
 from pim_compression_tpu_torch.utils import streams
 
 SEED = 20261016
@@ -49,8 +50,6 @@ BLOCKS = 1100  # chip_smoke.py's payload: 1100 blocks of 32 KB, less 1000 bytes
 BATCH = 1024
 REPS = 10
 STEP_BLOCKS = 32  # blocks of each case the mirror walks for --steps
-HBM_BYTES_PER_S = 3.35e12  # chip_smoke.py's rates for a bound
-INT32_OPS_PER_S = 132 * 128 * 1.98e9
 MAIN = dict(window=2048, coarse_window=8192, granular=True)
 # Rows of streams.sweep_hard_blocks timed as whole batches.
 HARD = (("zeros", 1), ("collisions", 4), ("two letters", 3), ("word at every 8th", 2))
@@ -117,14 +116,11 @@ def inputs(dev, todo) -> list[tuple]:
     out = []
     for name, knobs, blocks_np, lens_np in todo:
         blocks, lens = torch.from_numpy(blocks_np).to(dev), torch.from_numpy(lens_np).to(dev)
-        nb, bs = blocks.shape
+        bs = blocks.shape[1]
         mlen, mlag = hopper_sweep.sweep_match(blocks, lens, **knobs)
-        visited, first_word = hopper_sweep.sweep_pairs(blocks, lens, mlen, mlag, **knobs)
-        bytes_ms = (4 * nb * bs + 4 * nb) / HBM_BYTES_PER_S * 1e3
-        ops_ms = (nb * bs + first_word) / INT32_OPS_PER_S * 1e3
-        work = {"bs": bs, "knobs": knobs, "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "visited_pairs": visited, "first_word_pairs": first_word}
+        count = work_ledger.sweep_work(blocks, lens, mlen, mlag, knobs)
+        work = {"bs": bs, "knobs": knobs, "bound_ms": count["bound_ms"], "bound_by": count["bound_by"],
+                "visited_pairs": count["visited_pairs"], "first_word_pairs": count["first_word_pairs"]}
         out.append((name, knobs, blocks, lens, work))
     return out
 

@@ -155,11 +155,14 @@ def _visit(w, b, p, q, best_len, floor, maxk, stats, counted):
 def sweep_table(
     blocks: np.ndarray, lens: np.ndarray, window: int, coarse_window: int = 0, granular: bool = False, *,
     budget: int = BUDGET, key_bits: int = KEY_BITS, threads: int = THREADS, stats: collections.Counter | None = None,
+    walked: list | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """(mlen uint8[nb, bs], mlag int16[nb, bs]) as ``csrc/sweep.cu`` computes
     them for blocks uint8[nb, bs] and lens int32[nb], the knobs as
     ``hopper_sweep.sweep_knobs`` gives them. A smaller key_bits forces key
-    collisions; budget is the lane walk's entries before the handoff."""
+    collisions; budget is the lane walk's entries before the handoff. With
+    ``walked`` (a list) it appends the entries each walking position read:
+    its lane steps and 32 a warp round."""
     stats = collections.Counter() if stats is None else stats
     nb, bs = blocks.shape
     lens = np.clip(lens.astype(np.int64), 0, bs)
@@ -253,6 +256,8 @@ def sweep_table(
     warp_rounds = np.zeros((nb, n), np.int64)
     warp_rounds[b, p] = rounds
     per_warp = lane_steps.reshape(nb, -1, LANES).max(axis=2) + warp_rounds.reshape(nb, -1, LANES).sum(axis=2)
+    if walked is not None:
+        walked.append(steps + LANES * rounds)
     stats["positions"] += nb * bs
     stats["walks"] += len(p)
     stats["lane_steps"] += int(steps.sum())

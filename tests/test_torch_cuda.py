@@ -812,3 +812,31 @@ def test_cuda_engine_falls_back_to_portable(cuda_device, knobs):
         runtime.compress(data, TorchCodecConfig(engine="cuda", strict_engine=True, **knobs))
     assert "falling back" in str(e.value)
     assert [m.LAUNCHES for m in mods] == launches
+
+
+# ---------------------------------------------------------------------------
+# The measurement tools.
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_kernel_attrib_parts_add_to_the_whole(cuda_device):
+    from pim_compression_tpu_torch.scripts import kernel_attrib
+
+    res = kernel_attrib.run(cuda_device, names=["32768 zero-flag", "8192 sweep"], decode_sizes=(32768,), fixed=False)
+    assert [r["config"] for r in res["records"]] == ["32768 decode", "32768 zero-flag", "8192 sweep"]
+    for r in res["records"]:
+        assert abs(r["sum_over_whole"] - 1) <= 0.05, r
+        kernels = {"32768 decode": ["decode"], "32768 zero-flag": ["match", "emit"], "8192 sweep": ["sweep", "emit"]}
+        assert list(r["bounds"]) == kernels[r["config"]]
+        assert all(0 < b["share"] <= 1 for b in r["bounds"].values())
+
+
+def test_cuda_validate_config_a(cuda_device):
+    from pim_compression_tpu_torch.scripts import validate
+
+    res = validate.run(validate.parse(["--bs", "32768", "--matcher", "sorted", "--prev-k", "4", "--sel-cap", "16",
+                                       "--stride2-min", "16", "--ext-cap", "48", "--neighbor", "--max-lag", "8192",
+                                       "--quick", "--device", str(cuda_device)]))
+    assert res["kernels"] and res["engine"] == "cuda"
+    assert (res["decode_max_abs_err"], res["match_max_abs_err"], res["emit_max_abs_err"]) == (0, 0, 0)
+    assert res["decode_bit_exact"] and res["encode_round_trip"] and res["encode_decodes_ok"]
