@@ -227,6 +227,7 @@ PROBE_COPY = (32768, 32768)
 COPY_ROUNDS = 10  # rounds of the copy kernel and its library call in turns (phase 15)
 PROBE_MIX_ITERS = 8000
 PROBE_CHAIN = (8192, 50_000)
+CHAIN_DOUBLE = (1.8, 2.2)  # the chains' time at twice the steps over their time, at least and at most
 # Runs the CLI as `python -m pim_compression_tpu_torch` does, then prints
 # the kernels' launch counts of that process as its last line.
 CLI_RUN = (
@@ -1229,7 +1230,8 @@ def compare_probe(name: str, kernel, plain, args, reps: int, timing_args=None) -
 
 def probes_phase(device) -> dict:
     """Phase 15: each probe kernel against its plain version at the JAX probe
-    scripts' shapes, then the port's probe scripts with the counts at 0.
+    scripts' shapes, each chain also timed at twice its steps (CHAIN_DOUBLE
+    bounds the ratio), then the port's probe scripts with the counts at 0.
     Returns the kernels' stats (at each one's main shape: the chains at 10,000
     steps, the copy at 32768 rows in and out, the mix rounds at 8000, the
     chain fold at 8192 rows and 50,000 steps), the scripts' records and the
@@ -1259,6 +1261,13 @@ def probes_phase(device) -> dict:
         st = compare_probe(f"{name} hw_probe inputs x{steps}", kernel, plain, (xg, ig, steps), 5)
         st["bound"] = work_ledger.probe_work(name, xg.shape[0], steps)
         st["steps"] = steps
+        # Twice the steps take twice the time, or the steps did not all run.
+        st["double_ms"] = common.event_seconds(lambda: kernel(xg, ig, 2 * steps), 5) * 1e3
+        ratio = st["double_ms"] / st["ms"]
+        log(f"  {name} x{2 * steps}: {st['double_ms']:.4f} ms, {ratio:.3f}x the time at x{steps}")
+        if not CHAIN_DOUBLE[0] <= ratio <= CHAIN_DOUBLE[1]:
+            raise AssertionError(f"{name}: {2 * steps} steps took {ratio:.3f}x the time of {steps}, "
+                                 f"outside {CHAIN_DOUBLE}")
         stats[name] = st
     for in_rows, out_rows in transfer_probe.COPY_ROWS:
         xs = common.cold_copies(int32(in_rows))  # timed from device memory, not L2
@@ -1684,9 +1693,11 @@ def main() -> int:
 
     def probe_entry(name, replaces, shape):
         st = probes["stats"][name]
+        extra = {"library_ms": st["library_ms"]} if "library_ms" in st else {}
+        if "steps" in st:  # the two chains
+            extra["ns_per_step"] = st["ms"] * 1e6 / st["steps"]
         return entry(name, "probes.cu", [replaces], {"phase 15 scripts": probes["launches"][name]},
-                     st["max_abs_err"], st["ms"], st["plain_ms"], st["bound"], shape=shape,
-                     **({"library_ms": st["library_ms"]} if "library_ms" in st else {}))
+                     st["max_abs_err"], st["ms"], st["plain_ms"], st["bound"], shape=shape, **extra)
 
     # Times and bounds: the 64 KB shapes for decode (the 188-block comparison
     # batch), match and emit (one 1024-block batch at the zero-flag config);

@@ -13,25 +13,39 @@
 //   scripts/emu_calibrate.py::chain_kernel    the same recurrence and fold from
 //       v0[r, l] = x[0, l] + r                               -> mix_rounds_kernel (both)
 //
-// Gather chain. One CTA of 1024 threads holds the whole plane (64 KB) in
-// shared memory, as the TPU kernel holds it in one core's VMEM. A row only
-// reads itself, so each warp owns 4 rows and each lane 4 columns of each:
-// a step loads the lane's 16 gathered values into registers, __syncwarp,
-// stores them xor 1, __syncwarp. idx stays in registers. What bounds it:
-// shared-memory load and store issue on one SM (16384 loads, random banks,
-// and 16384 stores a step; about 1950 cycles a step on an H100, 7.4 times
-// the elementwise step), and the load latency of each dependent step.
+// Gather chain. A row only reads itself, so each row has its own CTA of
+// one warp: 128 CTAs, which the scheduler puts on 128 distinct SMs, and
+// nothing passes between them (no __syncthreads, nothing across CTAs). The
+// TPU kernel ran on the v5e's only TensorCore, the whole chip; a single CTA
+// would measure one of the H100's 132 SMs. The warp keeps its 512-byte row
+// in shared memory twice (two slices): lane l owns columns l + 32 j, j < 4,
+// and keeps their source columns idx & 127 in registers for the whole
+// loop. A step reads one slice (4 loads a lane, at random banks inside the
+// row), writes the other (4 stores xor 1, conflict-free) and ends in one
+// __syncwarp; with two slices no store can overwrite a word another lane
+// has still to read, so no second __syncwarp is needed. Every one of the
+// iters steps runs: the map x -> x[idx] ^ 1 is never composed. What bounds
+// it: one dependent step's latency, a shared-memory load behind its bank
+// conflicts, the xor, the store and the warp's sync: about 32 ns (63
+// cycles at 1980 MHz) a step on an H100 80GB HBM3, 700 W. One warp an SM
+// has nothing to overlap it with, so the operations bound
+// (work_ledger.probe_work) stays far off. Shuffles (the row in registers,
+// 16 a step) and four warps a CTA were slower on the same card.
 //
-// Elementwise chain. The same CTA and ownership, the 16 values of a thread
-// in registers: two dependent integer ops a step. What bounds it: issue on
-// one SM; 16 independent chains a thread hide the add's and the xor's
-// latency, and it runs at about 125 of the SM's 128 lanes a clock (one warp
-// instruction per scheduler per clock).
+// Elementwise chain. One element a thread, v <- (v + idx) ^ 1 in a
+// register: 128 CTAs of 128 threads, a row a CTA, one warp on each of an
+// SM's four schedulers. Each element is its own chain, and the loop keeps
+// both of a step's operations (the chain's per-element closed form is not
+// used; the compiled loop issues an IMAD.IADD and a LOP3 a step). What
+// bounds it: the latency of that dependent add and xor, about 5.5 ns (11
+// cycles) a step on an H100; with one warp a scheduler nothing hides it,
+// and issue (2 instructions a step) is a fraction of it.
 //
 // Both chains write the whole final plane, and the wrapper returns its rows
 // 0:8 (the TPU kernel's output). Storing rows 0:8 alone would let the
-// compiler sink the loop of the other rows under the store's condition; the
-// TPU compiler removed such work too (scripts/emu_calibrate.py:73-79).
+// compiler drop the loop of the other rows' CTAs under the store's
+// condition; the TPU compiler removed such work too
+// (scripts/emu_calibrate.py:73-79).
 //
 // Copy. Grid-stride over 16-byte vectors (a row of 128 int32 is 32 of
 // them), the grid sized so that each thread keeps kCopyInFlight loads in
@@ -65,87 +79,53 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kPlaneRows = 128;
-constexpr int kChainThreads = 1024;
-constexpr int kRowsPerWarp = kPlaneRows / (kChainThreads / 32);  // 4
-constexpr int kColsPerLane = kLanes / 32;  // 4
-constexpr int kPlaneBytes = kPlaneRows * kLanes * 4;  // 65536: above 48 KB, dynamic only
+constexpr int kColsPerLane = kLanes / 32;  // 4: a gather lane's columns, lane + 32 j
+constexpr int kEwThreads = 128;  // one element a thread: a CTA a row
 constexpr int kCopyThreads = 256;
 constexpr int kCopyMaxBlocks = 132 * 8;
 constexpr int kCopyInFlight = 4;  // 16-byte loads a copy thread issues before its stores
 constexpr int kMixThreads = 256;
 constexpr uint32_t kMul = 0x9E3779B9u;  // -1640531527 as uint32
 
-__global__ void __launch_bounds__(kChainThreads)
-gather_chain_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ idx,
-                    int32_t* __restrict__ out, int iters) {
-  extern __shared__ int32_t plane[];  // [kPlaneRows][kLanes]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * kRowsPerWarp;
-  int ix[kRowsPerWarp][kColsPerLane];
+// One step of the gather chain on a warp's row: to[c] = from[src[c]] ^ 1
+// for the lane's 4 columns c = lane + 32 j, then __syncwarp so the next
+// step reads the whole new row. The step reads one slice and writes the
+// other, so no lane can overwrite a word another lane has still to read.
+__device__ __forceinline__ void gather_step(const int32_t* from, int32_t* to, const int (&src)[kColsPerLane],
+                                            int lane) {
+  int32_t g[kColsPerLane];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
+  for (int j = 0; j < kColsPerLane; ++j) g[j] = from[src[j]];
 #pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int at = (row0 + r) * kLanes + lane + 32 * j;
-      plane[at] = x[at];
-      ix[r][j] = (row0 + r) * kLanes + (idx[at] & (kLanes - 1));
-    }
-  }
+  for (int j = 0; j < kColsPerLane; ++j) to[lane + 32 * j] = g[j] ^ 1;
   __syncwarp();
-  for (int it = 0; it < iters; ++it) {
-    int32_t g[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) g[r][j] = plane[ix[r][j]];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) plane[(row0 + r) * kLanes + lane + 32 * j] = g[r][j] ^ 1;
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int at = (row0 + r) * kLanes + lane + 32 * j;
-      out[at] = plane[at];
-    }
-  }
 }
 
-__global__ void __launch_bounds__(kChainThreads)
+__global__ void __launch_bounds__(32)
+gather_chain_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ idx,
+                    int32_t* __restrict__ out, int iters) {
+  __shared__ int32_t slice[2][kLanes];  // the CTA's row, double-buffered
+  const int lane = threadIdx.x, row = blockIdx.x * kLanes;
+  int src[kColsPerLane];
+#pragma unroll
+  for (int j = 0; j < kColsPerLane; ++j) {
+    slice[0][lane + 32 * j] = x[row + lane + 32 * j];
+    src[j] = idx[row + lane + 32 * j] & (kLanes - 1);
+  }
+  __syncwarp();
+  for (int it = 0; it < iters; ++it) gather_step(slice[it & 1], slice[(it & 1) ^ 1], src, lane);
+#pragma unroll
+  for (int j = 0; j < kColsPerLane; ++j) out[row + lane + 32 * j] = slice[iters & 1][lane + 32 * j];
+}
+
+__global__ void __launch_bounds__(kEwThreads)
 ew_chain_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ idx,
                 int32_t* __restrict__ out, int iters) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * kRowsPerWarp;
-  uint32_t v[kRowsPerWarp][kColsPerLane], ix[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int at = (row0 + r) * kLanes + lane + 32 * j;
-      v[r][j] = static_cast<uint32_t>(x[at]);
-      ix[r][j] = static_cast<uint32_t>(idx[at]);
-    }
-  }
-  for (int it = 0; it < iters; ++it) {
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) v[r][j] = (v[r][j] + ix[r][j]) ^ 1u;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      out[(row0 + r) * kLanes + lane + 32 * j] = static_cast<int32_t>(v[r][j]);
-    }
-  }
+  const int at = blockIdx.x * kEwThreads + threadIdx.x;
+  uint32_t v = static_cast<uint32_t>(x[at]);
+  const uint32_t i = static_cast<uint32_t>(idx[at]);
+  for (int it = 0; it < iters; ++it) v = (v + i) ^ 1u;
+  out[at] = static_cast<int32_t>(v);
 }
 
 __device__ __forceinline__ uint32_t plus_one(int32_t a) { return static_cast<uint32_t>(a) + 1u; }
@@ -199,10 +179,7 @@ extern "C" int pim_probe_gather_chain(const void* x, const void* idx, void* out,
   if (iters < 0) return cudaErrorInvalidValue;
   cudaError_t st = cudaSetDevice(device);
   if (st != cudaSuccess) return st;
-  st = cudaFuncSetAttribute(gather_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            kPlaneBytes);
-  if (st != cudaSuccess) return st;
-  gather_chain_kernel<<<1, kChainThreads, kPlaneBytes, static_cast<cudaStream_t>(stream)>>>(
+  gather_chain_kernel<<<kPlaneRows, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(idx), static_cast<int32_t*>(out),
       iters);
   return static_cast<int>(cudaGetLastError());
@@ -214,7 +191,7 @@ extern "C" int pim_probe_ew_chain(const void* x, const void* idx, void* out, int
   if (iters < 0) return cudaErrorInvalidValue;
   cudaError_t st = cudaSetDevice(device);
   if (st != cudaSuccess) return st;
-  ew_chain_kernel<<<1, kChainThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  ew_chain_kernel<<<kPlaneRows * kLanes / kEwThreads, kEwThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(idx), static_cast<int32_t*>(out),
       iters);
   return static_cast<int>(cudaGetLastError());

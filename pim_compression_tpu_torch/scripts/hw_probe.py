@@ -17,9 +17,12 @@ timed by CUDA events on the card:
 - ``gather chain (128,128) x10K`` and ``elementwise chain (128,128) x10K``:
   ``hopper_probes.gather_chain`` and ``ew_chain`` on the JAX script's own
   inputs (``arange(16384).reshape(128, 128)`` and
-  ``RandomState(0).randint(0, 128, (128, 128))``), one CTA on one SM; the
-  difference of their times per step is the cost of one dependent plane of
-  shared-memory gathers.
+  ``RandomState(0).randint(0, 128, (128, 128))``), spread over the card as
+  the TPU kernels held its whole chip: the gather one warp a row, each row
+  its own CTA on its own SM, the row in shared memory; the elementwise chain
+  one element a thread over 128 CTAs. Each step is then one dependent
+  latency, and their ratio per step is the card's cost of a dependent
+  random shared-memory access against a dependent integer add and xor.
 
 The JAX script's K-slope and per-dispatch readback existed for a TPU behind
 a slow link; CUDA events time the card alone.

@@ -446,19 +446,39 @@ def _probe_int32(rng, rows):
     return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("steps", [1, 7, 40, 10_000])
+# Index planes: seeded in [0, 128); every column at one column (each
+# gather load of a warp reads one word, a broadcast); every lane of a load
+# at one bank, four distinct words of it (the 4-way conflict, the most a
+# 128-word row allows); every index above 127, which the kernel reads as
+# idx & 127 and the plain version takes masked. test_torch_probe_layout.py
+# runs the kernels' CPU mirrors on the same planes.
+CHAIN_INDEX = {
+    "random": lambda rng: rng.integers(0, 128, (128, 128)),
+    "one-column": lambda rng: np.full((128, 128), rng.integers(0, 128)),
+    "one-bank": lambda rng: 32 * (np.arange(128)[None, :] % 4) + rng.integers(0, 32, (128, 1)),
+    "above-127": lambda rng: rng.integers(128, 2**31, (128, 128), dtype=np.int64),
+}
+CHAIN_CASES = [(steps, "random") for steps in (1, 7, 40, 10_000)] + [
+    (steps, index) for index in ("one-column", "one-bank", "above-127") for steps in (7, 10_000)
+]
+
+
+@pytest.mark.parametrize(
+    "steps, index", CHAIN_CASES, ids=[f"{s}" if i == "random" else f"{s}-{i}" for s, i in CHAIN_CASES]
+)
 @pytest.mark.parametrize("name", ["gather_chain", "ew_chain"])
-def test_cuda_probe_chains_match_plain_versions(cuda_device, name, steps):
+def test_cuda_probe_chains_match_plain_versions(cuda_device, name, steps, index):
     from pim_compression_tpu_torch.ops import hopper_probes
 
     rng = np.random.default_rng(steps)
     x = _probe_int32(rng, 128)
-    idx = torch.from_numpy(rng.integers(0, 128, (128, 128)).astype(np.int32))
+    idx = torch.from_numpy(CHAIN_INDEX[index](rng).astype(np.int32))
     launches = hopper_probes.LAUNCHES[name]
     got = getattr(hopper_probes, name)(x.to(cuda_device), idx.to(cuda_device), steps)
     torch.cuda.synchronize()
     assert hopper_probes.LAUNCHES[name] == launches + 1
-    want = getattr(hopper_probes, f"{name}_torch")(x, idx, steps)
+    # The gather kernel reads idx & 127; the plain gather takes only [0, 128).
+    want = getattr(hopper_probes, f"{name}_torch")(x, idx & 127 if name == "gather_chain" else idx, steps)
     assert torch.equal(got.cpu(), want)
 
 
