@@ -1,0 +1,8 @@
+"""The share of the traced window, in %, in which no kernel, copy or fill
+ran on the card, while the compress entry was driven."""
+
+
+def read(run):
+    if run.entry != "compress" or run.trace is None:
+        return None
+    return 100.0 * run.trace.idle_share

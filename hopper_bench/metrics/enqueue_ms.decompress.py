@@ -1,0 +1,10 @@
+"""Host milliseconds inside the decompress entry, the mean over the window's
+calls, from the benchmark's own span around each call (checks,
+allocations, the ctypes launches). It sets the pace only once it is longer
+than a batch's device time."""
+
+
+def read(run):
+    if run.entry != "decompress" or not run.enqueue_s:
+        return None
+    return 1e3 * sum(run.enqueue_s) / len(run.enqueue_s)
