@@ -179,7 +179,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--profile", metavar="DIR", default=None,
         help="write a torch.profiler trace of the codec run (with CUDA activity on the cuda and "
-        "portable engines) to DIR/trace.json",
+        "portable engines) to DIR/trace.json; the cuda engine's kernels add their own spans, each "
+        "launch from its first walk's start to its last walk's end, on a track of their own",
     )
     return p
 
@@ -229,6 +230,7 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     from pim_compression_tpu_torch import runtime
     from pim_compression_tpu_torch.format import constants as C
+    from pim_compression_tpu_torch.runtime import profiling
     from pim_compression_tpu_torch.format.varint import decode_varint32
     from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 
@@ -263,6 +265,8 @@ def main(argv: list[str] | None = None) -> int:
                 original, compressed = len(result), len(data)
                 _, pos = decode_varint32(data, 0)  # report the stream's own block size
                 block_size, _ = decode_varint32(data, pos)
+            if prof is not None:
+                profiling.kernel_summary()  # read while the session records: a second clock probe in the trace
     except SnappyError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2 if e.status == SnappyStatus.BAD_ARGUMENT else 1
@@ -273,6 +277,7 @@ def main(argv: list[str] | None = None) -> int:
         out = pathlib.Path(args.profile)
         out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out / "trace.json"))
+        profiling.add_kernel_spans(out / "trace.json")
         print(f"profiler trace written to {out}")
 
     pathlib.Path(args.o).write_bytes(result)

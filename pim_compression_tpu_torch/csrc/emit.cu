@@ -56,9 +56,15 @@
 // memory rate) is an order of magnitude below the walk; shortening the chain
 // (the scan's stop bits and the deferred lengths computed while staging) or
 // a parallel parse would be the next steps.
+//
+// Traced (kTrace, trace.cuh): each walk, from its first staging to its last
+// store, folds its %globaltimer span into the launch's record; the kernel
+// counts nothing else.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "trace.cuh"
 
 namespace {
 
@@ -148,11 +154,12 @@ __device__ __noinline__ void write_half(const WarpShared& s, uint8_t* out, int s
   __syncwarp();
 }
 
+template <bool kTrace>
 __global__ void __launch_bounds__(kThreads)
 emit_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ lens,
                    const uint8_t* __restrict__ mlen, const uint16_t* __restrict__ mlag,
                    uint8_t* __restrict__ comp, int32_t* __restrict__ sizes, int num_blocks, int bs,
-                   int cap) {
+                   int cap, pim::TraceRecord* trace) {
   __shared__ WarpShared shared[kWarps];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -168,6 +175,9 @@ emit_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict
   uint8_t* out = comp + static_cast<size_t>(b) * cap;
   const bool vec = (cap & 15) == 0 && (reinterpret_cast<uintptr_t>(comp) & 15) == 0;
 
+  if constexpr (kTrace) {
+    if (lane == 0) pim::trace_start(trace, pim::globaltimer());
+  }
   int base = 0;  // the window holds positions [base, base + kWindow)
   stage(s, data, len, lag, base, n, bs, lane);
   int p = 0;        // next accepted position
@@ -256,6 +266,9 @@ emit_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict
     for (int t = flushed + kHalf + lane; t < cap; t += 32) out[t] = 0;
   }
   if (lane == 0) sizes[b] = o;
+  if constexpr (kTrace) {
+    if (lane == 0) pim::trace_end(trace, pim::globaltimer());
+  }
 }
 
 }  // namespace
@@ -263,19 +276,29 @@ emit_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict
 // Emit num_blocks blocks on `stream`. blocks and mlen are uint8 and mlag uint16
 // (an int16 tensor's bits) [num_blocks, block_size]; lens and sizes
 // int32[num_blocks]; comp is
-// uint8[num_blocks, cap]. Returns cudaGetLastError() after the launch (0 on
-// success). Does not synchronise.
+// uint8[num_blocks, cap]. trace is a zeroed pim::TraceRecord on the device for
+// the traced kernel, or null for the plain one. Returns cudaGetLastError()
+// after the launch (0 on success). Does not synchronise.
 extern "C" int pim_emit_blocks(const void* blocks, const void* lens, const void* mlen,
                                const void* mlag, void* comp, void* sizes, int num_blocks,
-                               int block_size, int cap, int device, void* stream) {
+                               int block_size, int cap, int device, void* stream, void* trace) {
   if (num_blocks <= 0) return 0;
   if (block_size <= 0 || block_size > kMaxBlockSize || cap <= 0) return cudaErrorInvalidValue;
   cudaError_t st = cudaSetDevice(device);
   if (st != cudaSuccess) return st;
   const int grid = (num_blocks + kWarps - 1) / kWarps;
-  emit_blocks_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(lens),
-      static_cast<const uint8_t*>(mlen), static_cast<const uint16_t*>(mlag),
-      static_cast<uint8_t*>(comp), static_cast<int32_t*>(sizes), num_blocks, block_size, cap);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const uint8_t*>(blocks);
+  const auto* n = static_cast<const int32_t*>(lens);
+  const auto* l = static_cast<const uint8_t*>(mlen);
+  const auto* g = static_cast<const uint16_t*>(mlag);
+  auto* out = static_cast<uint8_t*>(comp);
+  auto* sz = static_cast<int32_t*>(sizes);
+  if (trace) {
+    emit_blocks_kernel<true><<<grid, kThreads, 0, s>>>(in, n, l, g, out, sz, num_blocks, block_size, cap,
+                                                       static_cast<pim::TraceRecord*>(trace));
+  } else {
+    emit_blocks_kernel<false><<<grid, kThreads, 0, s>>>(in, n, l, g, out, sz, num_blocks, block_size, cap, nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }

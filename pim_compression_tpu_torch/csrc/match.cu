@@ -119,12 +119,23 @@
 // per position and rung, L2-resident), the 64 KB halves' binary searches in
 // device memory and the extensions. Counting the next pass's digits during a
 // scatter, wider digits and several small blocks per CTA are left for later.
+//
+// Traced (kTrace, trace.cuh): thread 0 reads clock64() after the barriers that
+// end each phase and adds the cycles since its last reading to the phase's
+// counter of the launch's record: c[0] stage (stage_row, every chunk's and
+// the selection's), c[1] sort (the word build and the radix passes), c[2] lags
+// (the predecessor sweep with the 64 KB halves' search, and the plane write),
+// c[3] select (selection and extensions), c[4] fold (the neighbor fold and
+// the write-out, to thread 0's own end: no barrier follows it), c[5] the
+// CTA's cycles from its start. Every boundary is an existing barrier, so no
+// phases are merged. Each CTA also folds its %globaltimer span in.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "radix.cuh"
 #include "staging.cuh"
+#include "trace.cuh"
 
 namespace {
 
@@ -323,12 +334,27 @@ __device__ __forceinline__ int extend(const uint8_t* s, int p, int lag, int cap)
   return n < 4 ? 0 : n;
 }
 
+enum Phase { kStage = 0, kSort = 1, kLags = 2, kSelect = 3, kFold = 4, kTotal = 5 };
+
+// Traced: thread 0 adds the cycles since its last reading to `phase`.
+template <bool kTrace>
+__device__ __forceinline__ void phase_end(pim::TraceRecord* trace, long long& last, Phase phase, int tid) {
+  if constexpr (kTrace) {
+    if (tid == 0) {
+      const long long now = clock64();
+      atomicAdd(&trace->c[phase], static_cast<unsigned long long>(now - last));
+      last = now;
+    }
+  }
+}
+
+template <bool kTrace>
 __global__ void __launch_bounds__(kMaxThreads)
 match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ lens,
                     uint8_t* __restrict__ mlen, uint16_t* __restrict__ mlag,
                     uint16_t* __restrict__ near, uint32_t* __restrict__ first_half, int bs,
                     int rung_mask, int ext_cap, int neighbor, int max_lag, int prev_k,
-                    int sel_cap, int mode, int stride_code, int window) {
+                    int sel_cap, int mode, int stride_code, int window, pim::TraceRecord* trace) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int nt = blockDim.x;
   uint8_t* s_bytes = smem;  // region_bytes(bs): the bytes, or parked words and lags by row
@@ -345,6 +371,16 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
   const int n_rungs = __popc(rung_mask);
   uint16_t* planes = near + static_cast<size_t>(b) * n_rungs * bs;  // [n_rungs][bs]
   uint32_t* fh = first_half + static_cast<size_t>(b) * kHalf;        // used by a split sort
+  // Traced: thread 0's last clock64() reading. The total's counter takes
+  // -start now and the end at the end, as trace_start does for the span.
+  [[maybe_unused]] long long last = 0;
+  if constexpr (kTrace) {
+    if (tid == 0) {
+      pim::trace_start(trace, pim::globaltimer());
+      last = clock64();
+      atomicAdd(&trace->c[kTotal], 0ull - static_cast<unsigned long long>(last));
+    }
+  }
 
   // Nearest previous equal key per rung, uncapped, into the lag planes. The
   // bytes are staged anew for each chunk: its sort reuses their region.
@@ -366,6 +402,7 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
       const int steps = (real + nt - 1) / nt;  // at most kSteps
       pim::stage_row(s_bytes, blocks + row_base, len, pim::round16(bs + kPad), tid, nt);
       __syncthreads();
+      phase_end<kTrace>(trace, last, kStage, tid);
       for (int i = tid; i < steps * nt; i += nt) {
         uint32_t w = kSentinel;
         if (i < real) {
@@ -377,6 +414,7 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
       }
       __syncthreads();
       radix_sort(s_words, s_parked, s_hist, s_tot, steps, pos_bits, tid, nt);
+      phase_end<kTrace>(trace, last, kSort, tid);
       // Sorted slots [0, real) hold the real words; equal keys sit in row order.
       for (int i = tid; i < real; i += nt) {
         const uint32_t w = s_words[i];
@@ -397,10 +435,12 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
         plane[p] = (p - p0) % stride ? 0 : s_near[(p - p0) / stride];
       }
       __syncthreads();
+      phase_end<kTrace>(trace, last, kLags, tid);
     }
   }
   pim::stage_row(s_bytes, blocks + row_base, len, pim::round16(bs + kPad), tid, nt);
   __syncthreads();
+  phase_end<kTrace>(trace, last, kStage, tid);
 
   // Selection and the winner's extension, per position; the pre-fold lag
   // goes to shared memory (the sort buffer is free) and the length out.
@@ -460,6 +500,7 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
     mlen[row_base + p] = static_cast<uint8_t>(best_len);
   }
   __syncthreads();
+  phase_end<kTrace>(trace, last, kSelect, tid);
   uint8_t* s_len = s_bytes;  // the bytes are no longer read
   for (int p = tid; p < bs; p += nt) s_len[p] = mlen[row_base + p];
   __syncthreads();
@@ -479,6 +520,30 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
     mlen[row_base + p] = static_cast<uint8_t>(n);
     mlag[row_base + p] = static_cast<uint16_t>(lag);
   }
+  phase_end<kTrace>(trace, last, kFold, tid);
+  if constexpr (kTrace) {
+    if (tid == 0) {
+      atomicAdd(&trace->c[kTotal], static_cast<unsigned long long>(last));
+      pim::trace_end(trace, pim::globaltimer());
+    }
+  }
+}
+
+template <bool kTrace>
+cudaError_t launch(const void* blocks, const void* lens, void* mlen, void* mlag, void* near, void* first_half,
+                   int num_blocks, int block_size, int rung_mask, int ext_cap, int neighbor, int max_lag,
+                   int prev_k, int sel_cap, int mode, int stride_code, int window, void* stream, void* trace) {
+  const size_t smem = shared_bytes(block_size);
+  const int threads = block_threads(block_size);
+  const cudaError_t st = cudaFuncSetAttribute(match_blocks_kernel<kTrace>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (st != cudaSuccess) return st;
+  match_blocks_kernel<kTrace><<<num_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(lens),
+      static_cast<uint8_t*>(mlen), static_cast<uint16_t*>(mlag), static_cast<uint16_t*>(near),
+      static_cast<uint32_t*>(first_half), block_size, rung_mask, ext_cap, neighbor, max_lag,
+      prev_k, sel_cap, mode, stride_code, window, static_cast<pim::TraceRecord*>(trace));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -494,13 +559,14 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
 // divides the block's power-of-two sort size). max_lag 0 means no cap. mode 0
 // is the rung pick (prev_k 1, sel_cap 0), 1 the select ladder (sel_cap > 0),
 // 2 the per-rung ladder; modes 1 and 2 take prev_k candidates on the 4-byte
-// rung. Returns cudaGetLastError() after the launch (0 on success). Does not
-// synchronise.
+// rung. trace is a zeroed pim::TraceRecord on the device for the traced
+// kernel, or null for the plain one. Returns cudaGetLastError() after the
+// launch (0 on success). Does not synchronise.
 extern "C" int pim_match_blocks(const void* blocks, const void* lens, void* mlen, void* mlag,
                                 void* near, void* first_half, int num_blocks, int block_size,
                                 int rung_mask, int ext_cap, int neighbor, int max_lag,
                                 int prev_k, int sel_cap, int mode, int stride_code, int window,
-                                int device, void* stream) {
+                                int device, void* stream, void* trace) {
   if (num_blocks <= 0) return 0;
   if (block_size <= 0 || block_size > kMaxBlockSize || rung_mask <= 0 || rung_mask >= 32 ||
       ext_cap < 4 || ext_cap > 64 || (ext_cap & 3) || max_lag < 0 || prev_k < 1 ||
@@ -520,18 +586,12 @@ extern "C" int pim_match_blocks(const void* blocks, const void* lens, void* mlen
     }
   }
   if (split && first_half == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(block_size);
-  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  const int threads = block_threads(block_size);
-  cudaError_t st = cudaSetDevice(device);
+  if (shared_bytes(block_size) > kMaxSharedBytes) return cudaErrorInvalidValue;
+  const cudaError_t st = cudaSetDevice(device);
   if (st != cudaSuccess) return st;
-  st = cudaFuncSetAttribute(match_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            static_cast<int>(smem));
-  if (st != cudaSuccess) return st;
-  match_blocks_kernel<<<num_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(lens),
-      static_cast<uint8_t*>(mlen), static_cast<uint16_t*>(mlag), static_cast<uint16_t*>(near),
-      static_cast<uint32_t*>(first_half), block_size, rung_mask, ext_cap, neighbor, max_lag,
-      prev_k, sel_cap, mode, stride_code, window);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      trace ? launch<true>(blocks, lens, mlen, mlag, near, first_half, num_blocks, block_size, rung_mask, ext_cap,
+                           neighbor, max_lag, prev_k, sel_cap, mode, stride_code, window, stream, trace)
+            : launch<false>(blocks, lens, mlen, mlag, near, first_half, num_blocks, block_size, rung_mask, ext_cap,
+                            neighbor, max_lag, prev_k, sel_cap, mode, stride_code, window, stream, trace));
 }

@@ -100,7 +100,7 @@ def load() -> ctypes.CDLL:
         lib.pim_decode_blocks.argtypes = [
             ptr, ptr, ptr, ptr, ptr,  # comp, comp_len, out_len, out, err
             i32, i32, i32, i32,  # num_blocks, cap, block_size, device
-            ptr,  # stream
+            ptr, ptr,  # stream, trace record (null: the plain kernel)
         ]
         lib.pim_decode_walks_per_sm.restype = i32
         lib.pim_decode_walks_per_sm.argtypes = [i32]  # device
@@ -109,7 +109,7 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, near, first_half
             i32, i32, i32, i32, i32, i32,  # num_blocks, block_size, rung_mask, ext_cap, neighbor, max_lag
             i32, i32, i32, i32, i32,  # prev_k, sel_cap, mode, stride_code, window
-            i32, ptr,  # device, stream
+            i32, ptr, ptr,  # device, stream, trace record (null: the plain kernel)
         ]
         lib.pim_sweep_blocks.restype = i32
         lib.pim_sweep_blocks.argtypes = [
@@ -123,7 +123,7 @@ def load() -> ctypes.CDLL:
         lib.pim_emit_blocks.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, comp, sizes
             i32, i32, i32,  # num_blocks, block_size, cap
-            i32, ptr,  # device, stream
+            i32, ptr, ptr,  # device, stream, trace record (null: the plain kernel)
         ]
         for chain in (lib.pim_probe_gather_chain, lib.pim_probe_ew_chain):
             chain.restype = i32
@@ -135,5 +135,7 @@ def load() -> ctypes.CDLL:
             ptr, ptr, i32, i32, i32,  # x, out, rows, iters, from_row0
             i32, ptr,  # device, stream
         ]
+        lib.pim_clock_calibrate.restype = i32
+        lib.pim_clock_calibrate.argtypes = [i32, i32, ptr]  # device, tries, out (int64[3 * tries])
         _lib = lib
     return _lib

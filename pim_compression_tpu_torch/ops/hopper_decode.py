@@ -17,8 +17,10 @@ same output bytes and error bits, on CPU or CUDA tensors. The tests and
 from __future__ import annotations
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from pim_compression_tpu_torch.ops import _build
+from pim_compression_tpu_torch.runtime import profiling
 
 # Error bits (pim_compression_tpu/ops/lane_model.py:37-41).
 ERR_LENGTH_MISMATCH = 1
@@ -285,32 +287,67 @@ def decode_blocks(
     Returns (out uint8[nb, block_size], err int32[nb]) on that device; err
     holds the parse DFA's bits. A CPU tensor is decoded by
     ``decode_blocks_torch``. The launch goes on the current stream and does
-    not synchronise.
+    not synchronise. While a ``torch.profiler`` session records, the traced
+    kernel runs and the checks, allocations and launch are host spans
+    (``runtime/profiling.py``).
     """
-    global LAUNCHES
+    if _autograd_profiler._is_profiler_enabled and profiling.KERNEL_SPANS is not False:
+        return _decode_traced(comp, comp_len, out_len, block_size)
+    if not _on_card(comp, comp_len, out_len, block_size):
+        return decode_blocks_torch(comp, comp_len, out_len, block_size)
+    out, err = _outputs(comp, block_size)
+    if out.shape[0]:
+        _launch(comp, comp_len, out_len, out, err, block_size, None)
+    return out, err
+
+
+def _decode_traced(comp, comp_len, out_len, block_size: int):
+    """``decode_blocks`` with the traced kernel, a span around each part."""
+    with torch.profiler.record_function("decode_blocks.check"):
+        on_card = _on_card(comp, comp_len, out_len, block_size)
+    if not on_card:
+        return decode_blocks_torch(comp, comp_len, out_len, block_size)
+    with torch.profiler.record_function("decode_blocks.alloc"):
+        out, err = _outputs(comp, block_size)
+    if out.shape[0]:
+        with torch.profiler.record_function("decode_blocks.launch"):
+            _launch(comp, comp_len, out_len, out, err, block_size, profiling.launch_record("decode", comp.device))
+    return out, err
+
+
+def _on_card(comp, comp_len, out_len, block_size: int) -> bool:
+    """Check the arguments: True for CUDA tensors, False for CPU ones."""
     _check_inputs(comp, comp_len, out_len, block_size)
     if comp.device.type == "cpu":
-        return decode_blocks_torch(comp, comp_len, out_len, block_size)
+        return False
     if comp.device.type != "cuda":
         raise ValueError(f"decode_blocks takes CPU or CUDA tensors, not {comp.device}")
     if not (comp.is_contiguous() and comp_len.is_contiguous() and out_len.is_contiguous()):
         raise ValueError("decode_blocks needs contiguous tensors")
+    return True
+
+
+def _outputs(comp, block_size: int):
+    nb = comp.shape[0]
+    return (torch.empty((nb, block_size), dtype=torch.uint8, device=comp.device),
+            torch.empty(nb, dtype=torch.int32, device=comp.device))
+
+
+def _launch(comp, comp_len, out_len, out, err, block_size: int, trace) -> None:
+    """Launch the kernel on the current stream; ``trace`` is a record's
+    address for the traced kernel, or None for the plain one."""
+    global LAUNCHES
     nb, cap = comp.shape
-    out = torch.empty((nb, block_size), dtype=torch.uint8, device=comp.device)
-    err = torch.empty(nb, dtype=torch.int32, device=comp.device)
-    if nb == 0:
-        return out, err
     lib = _build.load()
     rc = lib.pim_decode_blocks(
         comp.data_ptr(), comp_len.data_ptr(), out_len.data_ptr(),
         out.data_ptr(), err.data_ptr(), nb, cap, block_size,
         comp.device.index if comp.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(comp.device).cuda_stream,
+        torch.cuda.current_stream(comp.device).cuda_stream, trace,
     )
     if rc != 0:
         raise RuntimeError(f"decode kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return out, err
 
 
 def walks_per_sm(device=None) -> int:

@@ -21,9 +21,11 @@ and lands every byte where the scatter puts it.
 from __future__ import annotations
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from pim_compression_tpu_torch.utils.errors import SnappyError, SnappyStatus
 from pim_compression_tpu_torch.ops import _build, hopper_match, hopper_sweep
+from pim_compression_tpu_torch.runtime import profiling
 
 # The port's encode envelope: the reference's Pallas envelope (api.py:35,
 # :38-70).
@@ -236,32 +238,67 @@ def emit_blocks(
     (comp uint8[nb, cap], sizes int32[nb]) equal to ``emit_blocks_torch``,
     bytes past each size included. A CPU tensor goes to
     ``emit_blocks_torch``. The launch goes on the current stream and does
-    not synchronise.
+    not synchronise. While a ``torch.profiler`` session records, the traced
+    kernel runs and the checks, allocations and launch are host spans
+    (``runtime/profiling.py``).
     """
-    global LAUNCHES
+    if _autograd_profiler._is_profiler_enabled and profiling.KERNEL_SPANS is not False:
+        return _emit_traced(blocks, lens, mlen, mlag, cap)
+    if not _on_card(blocks, lens, mlen, mlag, cap):
+        return emit_blocks_torch(blocks, lens, mlen, mlag, cap)
+    comp, sizes = _outputs(blocks, cap)
+    if blocks.shape[0]:
+        _launch(blocks, lens, mlen, mlag, comp, sizes, None)
+    return comp, sizes
+
+
+def _emit_traced(blocks, lens, mlen, mlag, cap: int):
+    """``emit_blocks`` with the traced kernel, a span around each part."""
+    with torch.profiler.record_function("emit_blocks.check"):
+        on_card = _on_card(blocks, lens, mlen, mlag, cap)
+    if not on_card:
+        return emit_blocks_torch(blocks, lens, mlen, mlag, cap)
+    with torch.profiler.record_function("emit_blocks.alloc"):
+        comp, sizes = _outputs(blocks, cap)
+    if blocks.shape[0]:
+        with torch.profiler.record_function("emit_blocks.launch"):
+            _launch(blocks, lens, mlen, mlag, comp, sizes, profiling.launch_record("emit", blocks.device))
+    return comp, sizes
+
+
+def _on_card(blocks, lens, mlen, mlag, cap: int) -> bool:
+    """Check the arguments: True for CUDA tensors, False for CPU ones."""
     _check_inputs(blocks, lens, mlen, mlag, cap)
     if blocks.device.type == "cpu":
-        return emit_blocks_torch(blocks, lens, mlen, mlag, cap)
+        return False
     if blocks.device.type != "cuda":
         raise ValueError(f"emit_blocks takes CPU or CUDA tensors, not {blocks.device}")
     if not all(t.is_contiguous() for t in (blocks, lens, mlen, mlag)):
         raise ValueError("emit_blocks needs contiguous tensors")
+    return True
+
+
+def _outputs(blocks, cap: int):
+    nb = blocks.shape[0]
+    return (torch.empty((nb, cap), dtype=torch.uint8, device=blocks.device),
+            torch.empty(nb, dtype=torch.int32, device=blocks.device))
+
+
+def _launch(blocks, lens, mlen, mlag, comp, sizes, trace) -> None:
+    """Launch the kernel on the current stream; ``trace`` is a record's
+    address for the traced kernel, or None for the plain one."""
+    global LAUNCHES
     nb, bs = blocks.shape
-    comp = torch.empty((nb, cap), dtype=torch.uint8, device=blocks.device)
-    sizes = torch.empty(nb, dtype=torch.int32, device=blocks.device)
-    if nb == 0:
-        return comp, sizes
     lib = _build.load()
     rc = lib.pim_emit_blocks(
         blocks.data_ptr(), lens.data_ptr(), mlen.data_ptr(), mlag.data_ptr(),
-        comp.data_ptr(), sizes.data_ptr(), nb, bs, cap,
+        comp.data_ptr(), sizes.data_ptr(), nb, bs, comp.shape[1],
         blocks.device.index if blocks.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(blocks.device).cuda_stream,
+        torch.cuda.current_stream(blocks.device).cuda_stream, trace,
     )
     if rc != 0:
         raise RuntimeError(f"emit kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return comp, sizes
 
 
 def encode_blocks_torch(

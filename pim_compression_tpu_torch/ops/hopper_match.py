@@ -30,8 +30,10 @@ blockize zeroes them; the spec sees those zeros). Lags reach 65535, so
 from __future__ import annotations
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from pim_compression_tpu_torch.ops import _build
+from pim_compression_tpu_torch.runtime import profiling
 
 # lane_model_encode.py:183-184: odd 32-bit multipliers of the hash ladder.
 HASH_M1 = 0x9E3779B1
@@ -301,46 +303,90 @@ def match_blocks(
     ``match_blocks_torch``. The launch goes on the current stream and does
     not synchronise; its device-memory scratch (a uint16 lag plane per rung
     and block, and where a rung sorts more than 32768 rows at once a sorted
-    copy of each block's first half) is allocated here.
+    copy of each block's first half) is allocated here. While a
+    ``torch.profiler`` session records, the traced kernel runs and the
+    checks, allocations and launch are host spans (``runtime/profiling.py``).
     """
-    global LAUNCHES
-    _check_inputs(blocks, lens)
     knobs = dict(
         rungs=rungs, ext_cap=ext_cap, neighbor=neighbor, max_lag=max_lag, prev_k=prev_k,
         sel_cap=sel_cap, sel_all=sel_all, rung_pick=rung_pick, strides=strides, sort_window=sort_window,
     )
-    if blocks.device.type == "cpu":
+    if _autograd_profiler._is_profiler_enabled and profiling.KERNEL_SPANS is not False:
+        return _match_traced(blocks, lens, knobs)
+    if not _on_card(blocks, lens, knobs):
         return match_blocks_torch(blocks, lens, **knobs)
+    out = _outputs(blocks, knobs)
+    if blocks.shape[0]:
+        _launch(blocks, lens, out, knobs, None)
+    return out[0], out[1]
+
+
+def _match_traced(blocks, lens, knobs: dict):
+    """``match_blocks`` with the traced kernel, a span around each part."""
+    with torch.profiler.record_function("match_blocks.check"):
+        on_card = _on_card(blocks, lens, knobs)
+    if not on_card:
+        return match_blocks_torch(blocks, lens, **knobs)
+    with torch.profiler.record_function("match_blocks.alloc"):
+        out = _outputs(blocks, knobs)
+    if blocks.shape[0]:
+        with torch.profiler.record_function("match_blocks.launch"):
+            _launch(blocks, lens, out, knobs, profiling.launch_record("match", blocks.device))
+    return out[0], out[1]
+
+
+def _on_card(blocks, lens, knobs: dict) -> bool:
+    """Check the arguments and, for CUDA tensors, the knobs (``knobs``
+    takes the checked rungs and strides): True for CUDA tensors, False for
+    CPU ones."""
+    _check_inputs(blocks, lens)
+    if blocks.device.type == "cpu":
+        return False
     if blocks.device.type != "cuda":
         raise ValueError(f"match_blocks takes CPU or CUDA tensors, not {blocks.device}")
     if not (blocks.is_contiguous() and lens.is_contiguous()):
         raise ValueError("match_blocks needs contiguous tensors")
+    knobs["rungs"], knobs["strides"] = check_knobs(
+        blocks.shape[1], **{k: v for k, v in knobs.items() if k != "neighbor"})
+    return True
+
+
+def _outputs(blocks, knobs: dict) -> tuple:
+    """(mlen, mlag, the lag planes, the sorted first halves or None); no
+    scratch for no blocks."""
     nb, bs = blocks.shape
-    rungs, strides = check_knobs(
-        bs, rungs, ext_cap, max_lag, prev_k, sel_cap, sel_all, rung_pick, strides, sort_window
-    )
     dev = blocks.device
     mlen = torch.empty((nb, bs), dtype=torch.uint8, device=dev)
     mlag = torch.empty((nb, bs), dtype=torch.int16, device=dev)
     if nb == 0:
-        return mlen, mlag
-    near = torch.empty((nb, len(rungs), bs), dtype=torch.int16, device=dev)
+        return mlen, mlag, None, None
+    near = torch.empty((nb, len(knobs["rungs"]), bs), dtype=torch.int16, device=dev)
     # A stride-1 rung with no window sorts its 32 KB halves in turn above 32768.
-    split = bs > HALF and 1 in strides and not (sort_window and sort_window < sort_size(bs))
+    window = knobs["sort_window"]
+    split = bs > HALF and 1 in knobs["strides"] and not (window and window < sort_size(bs))
     first_half = torch.empty((nb, HALF), dtype=torch.int32, device=dev) if split else None
-    bits = [r.bit_length() - 3 for r in rungs]  # rung 4 << bit
+    return mlen, mlag, near, first_half
+
+
+def _launch(blocks, lens, out: tuple, knobs: dict, trace) -> None:
+    """Launch the kernel on the current stream; ``trace`` is a record's
+    address for the traced kernel, or None for the plain one."""
+    global LAUNCHES
+    mlen, mlag, near, first_half = out
+    nb, bs = blocks.shape
+    dev = blocks.device
+    bits = [r.bit_length() - 3 for r in knobs["rungs"]]  # rung 4 << bit
     rung_mask = sum(1 << bit for bit in bits)
-    stride_code = sum((s.bit_length() - 1) << (2 * bit) for bit, s in zip(bits, strides))
+    stride_code = sum((s.bit_length() - 1) << (2 * bit) for bit, s in zip(bits, knobs["strides"]))
     lib = _build.load()
     rc = lib.pim_match_blocks(
         blocks.data_ptr(), lens.data_ptr(), mlen.data_ptr(), mlag.data_ptr(),
         near.data_ptr(), first_half.data_ptr() if first_half is not None else None,
-        nb, bs, rung_mask, ext_cap, int(neighbor), max_lag, prev_k, sel_cap,
-        _mode(sel_all, rung_pick), stride_code, sort_window,
+        nb, bs, rung_mask, knobs["ext_cap"], int(knobs["neighbor"]), knobs["max_lag"], knobs["prev_k"],
+        knobs["sel_cap"], _mode(knobs["sel_all"], knobs["rung_pick"]), stride_code, knobs["sort_window"],
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, trace,
     )
     if rc != 0:
         raise RuntimeError(f"match kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return mlen, mlag

@@ -10,11 +10,15 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors: the decode kernel by verdicts on every block and bytes on valid
 blocks, the match and emit kernels exactly (every length, lag, size and
 byte), the probe kernels exactly; and the engines against the plaintext,
-at every pipeline depth, through pinned staging buffers.
+at every pipeline depth, through pinned staging buffers. The traced
+instantiations of the decode, match and emit kernels are held to the plain
+ones byte for byte, and the decode's counters to the NumPy mirror
+(``tests/decode_window_mirror.py``, which imports no JAX either).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import random
@@ -28,8 +32,10 @@ from pim_compression_tpu.format import oracle
 from pim_compression_tpu_torch import TorchCodecConfig, runtime
 from pim_compression_tpu_torch.utils.errors import SnappyError
 from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
-from pim_compression_tpu_torch.runtime import pipeline, staging
+from pim_compression_tpu_torch.runtime import pipeline, profiling, staging
 from pim_compression_tpu_torch.utils import streams
+
+from decode_window_mirror import decode_window_model
 
 # One torch thread per test process: the xdist workers share the machine's cores.
 torch.set_num_threads(1)
@@ -439,6 +445,91 @@ def test_cuda_cli_profile_traces_the_kernels(cuda_device, tmp_path):
     assert cli.main(["-c", "--profile", str(tmp_path / "prof"), "-i", str(src), "-o", str(comp)]) == 0
     trace = (tmp_path / "prof" / "trace.json").read_text()
     assert "match_blocks_kernel" in trace and "emit_blocks_kernel" in trace
+    # The traced kernels' own spans, on a track of their own.
+    spans = [e for e in json.loads(trace)["traceEvents"] if e.get("cat") == "kernel_span"]
+    assert {e["name"] for e in spans} == {"match_blocks_kernel", "emit_blocks_kernel"}
+    assert all(e["dur"] > 0 and 0 < e["args"].get("sort_%", 1) < 100 for e in spans)
+
+
+# The rung pick at 32 KB, the sel_all ladder at 64 KB (the zero-flag config's rule).
+@pytest.mark.parametrize("block_size", [32768, 65536])
+def test_cuda_traced_kernels_equal_the_plain_ones(cuda_device, block_size, monkeypatch, tmp_path):
+    # Inside a profiler session the three codec kernels run traced: the same
+    # output bytes, one record a launch, the decode's counters equal to the
+    # NumPy mirror's counts on the same blocks, and each launch's span, on
+    # the host clock, inside the profiler's event for that launch.
+    monkeypatch.setattr(profiling, "KERNEL_SPANS", None)
+    knobs = hopper_encode.encode_knobs(TorchCodecConfig(engine="cuda", block_size=block_size))
+    assert knobs["sel_all"] == (block_size > 32768) and knobs["rung_pick"] == (block_size <= 32768)
+    data = streams.text_payload(8 * block_size + 999, 31)
+    if block_size > 32768:  # copies past the decode's ring
+        data += streams.far_repeat_block(block_size, 2)
+    nb = -(-len(data) // block_size)
+    flat = np.zeros(nb * block_size, np.uint8)
+    flat[: len(data)] = np.frombuffer(data, np.uint8)
+    blocks = torch.from_numpy(flat.reshape(nb, block_size)).to(cuda_device)
+    lens = torch.tensor([min(block_size, len(data) - i * block_size) for i in range(nb)], dtype=torch.int32,
+                        device=cuda_device)
+    cap = pipeline.padded_capacity(block_size)
+    mlen, mlag = hopper_match.match_blocks(blocks, lens, **knobs)
+    comp, sizes = hopper_encode.emit_blocks(blocks, lens, mlen, mlag, cap)
+    rows, sizes_h = comp.cpu().numpy(), sizes.cpu().numpy()
+    encoded = [(rows[i, : sizes_h[i]].tobytes(), int(lens[i])) for i in range(nb)]
+    hand = [blk for blk in streams.hand_blocks(block_size) if blk[1] <= block_size]
+    dec = encoded + hand + streams.block_mutants(encoded + hand, random.Random(block_size), 16, block_size)
+    dec_args = _on_device(dec, block_size, cuda_device)
+
+    def run():
+        m = hopper_match.match_blocks(blocks, lens, **knobs)
+        e = hopper_encode.emit_blocks(blocks, lens, *m, cap)
+        d = hopper_decode.decode_blocks(*dec_args, block_size=block_size)
+        torch.cuda.synchronize()
+        return (*m, *e, *d)
+
+    plain = run()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        traced = run()
+        summary = profiling.kernel_summary()  # inside the session: its clock probe lands in the trace
+    for a, b in zip(plain, traced):
+        assert torch.equal(a, b)
+    assert len(summary["decode"].probes) == 2
+    assert set(summary) == {"decode", "match", "emit"}
+    assert all(k.launches == 1 and k.dropped == 0 and 0 < k.walk_balance <= 1 for k in summary.values())
+    assert (summary["match"].walks, summary["emit"].walks, summary["decode"].walks) == (nb, nb, len(dec))
+    cycles = summary["match"].counters
+    assert sum(cycles[p] for p in profiling.MATCH_PHASES) == cycles["total"] and all(cycles.values())
+
+    host = [t.cpu().numpy() for t in dec_args]
+    ours, rest = collections.Counter(), collections.Counter()  # the encoded blocks, the hand-made ones
+    decode_window_model(*(a[:nb] for a in host), block_size, stats=ours)
+    decode_window_model(*(a[nb:] for a in host), block_size, stats=rest)
+    stats = ours + rest
+    assert summary["decode"].counters == {
+        "elements": stats["elements"],
+        "general": stats["elements"] - stats["short_path_copies"] - stats["short_path_literals"],
+        "copied": stats["copied_bytes"], "from_row": stats["row_reads"],
+    }
+    # max_lag 8192 keeps the rung pick's copies in the 16 KB ring; the ladder's full reach leaves it.
+    assert (ours["row_reads"] > 0) == (block_size > 32768)
+
+    # On the trace's device timeline, aligned on the two clock probes' own
+    # events (at the session's first traced launch and at the summary).
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    exported = json.loads(path.read_text())
+    base = int(exported.get("baseTimeNanoseconds", 0))
+    points = profiling.timeline_points(exported["traceEvents"], summary["decode"].probes, base)
+    assert points and points[0][0] == summary["decode"].probes[0][0]  # the profiler may drop the last
+    for kernel, k in summary.items():
+        events = [e for e in exported["traceEvents"]
+                  if e.get("cat") == "kernel" and profiling.KERNEL_NAMES[kernel] in e.get("name", "")]
+        assert len(events) == 1, kernel
+        lo = base + round(events[0]["ts"] * 1000)
+        hi = lo + round(events[0]["dur"] * 1000)
+        slack = k.uncertainty_ns + max(u for _, _, u in points) + 2000
+        start, end = (int(x) for x in profiling.on_timeline(k.spans, points)[0])
+        assert lo - slack <= start < end <= hi + slack, (kernel, lo, start, end, hi, slack, points)
 
 
 def _probe_int32(rng, rows):
