@@ -35,31 +35,37 @@
 // equal key is its sorted predecessor when the keys are equal. Each rung builds
 // the words of up to 32768 rows in row order in one shared-memory buffer (each
 // thread hashes its rows straight from the bytes; no hash plane is kept between
-// rungs), then ranks them by an LSD radix sort of the key field: three passes of
-// 6+6+5 bits (pos_bits 15) or 6+5+5 (pos_bits 16), so at most 64 bins a pass.
+// rungs), then ranks them by an LSD radix sort of the key field: two passes of
+// 9+8 bits (pos_bits 15) or 8+8 (pos_bits 16), so at most 512 bins a pass.
 // Each warp owns a contiguous slice of the buffer and walks it 32 rows a step,
-// lane l on row base + 32 i + l. A pass is
-//   1. a count sweep: every thread reads its slice's words; per
-//      step the warp takes one ballot per digit bit, and lane l counts the lanes
-//      whose digit is l (and l + 32) as the AND of those ballots or their
-//      complements, in two registers: no atomics, no shared-memory counters;
-//   2. the counts go to shared memory in digit-major, warp-minor order (64 x 32
-//      uint16) and the CTA scans them once, exclusively;
-//   3. a scatter sweep of the words read in step 1: a lane's rank in its
-//      step is popc(peers & lanemask_lt), its peers the AND of the ballots as its
-//      own digit selects them; the running offset of a digit is kept by the lane
-//      that owns it and read with one shuffle.
+// lane l on row base + 32 i + l, and owns a column of digit counts in shared
+// memory: uint16 counts, those of digits 2j and 2j + 1 in word j * (warps + 1)
+// of the column, so no other warp touches its words and its digits spread
+// over the banks (radix.cuh, wide_slot). A pass is
+//   1. a count sweep: the warp zeroes its column, then every thread reads its
+//      slice's words and adds one to its digit's count by a shared-memory
+//      atomic add: no ballots;
+//   2. the CTA scans the counts once, exclusively, in digit-major, warp-minor
+//      order, 2^bits / 32 adjacent counts a thread (scan_wide_counts), which
+//      leaves each digit's first slot for the warp in its count;
+//   3. a scatter sweep of the words read in step 1: a lane's rank in its step
+//      is popc(peers & lanemask_lt), its peers the lanes with its digit (the
+//      AND of the digit's 8-9 ballots or their complements; kMatchAny = 1
+//      takes __match_any_sync); it adds the digit's running offset, read from
+//      the warp's column, and the lowest peer writes the offset back moved on
+//      by the peers' number, between two __syncwarp()s.
 // Barriers: 4 a pass (after the counts, two in the scan, after the scatter)
-// instead of one per bitonic stage. The sort runs in place in one 128 KB
-// buffer, as the bitonic sort did, so a thread keeps the words it read (32 at
-// 1024 threads) across the barriers that separate reading the old order from
-// writing the new one: the first kHeld = 16 in registers, the rest parked in
-// the byte region (64 KB at 1024 threads). Holding all 32 in registers spilled
-// at the 64 registers a thread may have at 1024 threads (ptxas: a 624-byte
-// stack frame while the lags were kept in registers too, 48 bytes of spill
-// stores without them) and ran no faster; 512 threads with 64 words each in
-// 128 registers did not spill but ran 1.17-1.39x slower, with half the warps
-// (scripts/match_variants.py on an H100). Rows past the last
+// instead of one per bitonic stage, 8 a sort where three 6-bit passes took 12.
+// The sort runs in place in one 128 KB buffer, as the bitonic sort did, so a
+// thread keeps the words it read (32 at 1024 threads) across the barriers
+// that separate reading the old order from writing the new one: all kHeld =
+// 32 in registers. With three 6-bit passes, holding 32 spilled at the 64
+// registers a thread may have at 1024 threads, and the words past the first
+// 16 were parked in the byte region (kHeld = 16, still a variant); the wider
+// passes, with no owned-bin masks in the count sweep, hold all 32 without a
+// spill and ran 3-4.5 % faster than parking half. 512 threads with 64 words
+// each in 128 registers ran 1.2-1.35x slower, with half the warps
+// (scripts/match_variants.py on an H100; PERF.md §6). Rows past the last
 // real one of the buffer take sentinels 0xFFFFFFFF, whose digits are all ones
 // and which start last, so a stable sort keeps them last and the real words
 // are the first sorted. Then one sweep over the sorted words takes each one's
@@ -105,20 +111,29 @@
 //
 // Shared memory: the byte region max(round16(bs + 64), 2 * words) + the sort
 // words 4 * words, words = max(min(n, 32768), 2 * threads) with n the power of
-// two >= bs, + the digit counts 2 * 64 * warps + 128 bytes of scan totals:
-// 200832 bytes at bs = 32768 and 200896 at 65536, one CTA of 1024 threads per SM.
+// two >= bs, + the warps' columns of counts 4 * (512 / 2) * (warps + 1) (the
+// 64-bin passes took 2 * 64 * warps) + 128 bytes of scan totals: 230528 bytes
+// at bs = 32768 and 230592 at 65536 (200832 and 200896 with 64 bins), and the
+// traced kernel's 16 static bytes, under the 232448 a CTA may have, so still
+// one CTA of 1024 threads per SM. 64 registers, no spills (ptxas, both
+// instantiations).
 //
-// What bounds it: the warp instructions of the sort, issued at about a third
-// of the SM's rate. Per rung and 32768 rows a pass is 1024 warp-steps of a
-// count sweep (a load, 5-6 ballots, the two owned bins' masks) and 1024 of a
-// scatter (the same ballots, the peers, two shuffles, a store), against the
-// bitonic network's 120 stages of 16384 compare-exchanges. On an H100 the
-// sort is about two thirds of the kernel's time at 32 KB and half at 64 KB
-// (the build without it, kPasses = 0, in scripts/match_variants.py); the
-// rest is hashing (byte loads of the staged block), the lag planes (2 bytes
-// per position and rung, L2-resident), the 64 KB halves' binary searches in
-// device memory and the extensions. Counting the next pass's digits during a
-// scatter, wider digits and several small blocks per CTA are left for later.
+// What bounds it: the warp instructions of the sort's scatter. Per rung and
+// 32768 rows a pass is 1024 warp-steps of a count sweep (a load, the digit,
+// one shared-memory atomic add) and 1024 of a scatter (8-9 ballots, each
+// with a shift and a LOP3, the peers' rank, the running offset's load and
+// store, the word's store), against the bitonic network's 120 stages of 16384
+// compare-exchanges. Measured on an H100 against the three 6-bit passes with
+// lane-owned counts they replaced, the two passes take two fifths off the
+// sort phase and a sixth to a quarter off the kernel; peers from
+// __match_any_sync, a count sweep by the lowest peer instead of atomics and
+// 512 threads were slower (scripts/match_variants.py; PERF.md §6).
+// The rest is the word build
+// (hashing: byte loads of the staged block; kPasses = 0 leaves it alone), the
+// lag planes (2 bytes per position and rung, L2-resident), the 64 KB halves'
+// binary searches in device memory and the extensions. Counting the next
+// pass's digits during a scatter and several small blocks per CTA are left
+// for later.
 //
 // Traced (kTrace, trace.cuh): thread 0 reads clock64() after the barriers that
 // end each phase and adds the cycles since its last reading to the phase's
@@ -139,10 +154,6 @@
 
 namespace {
 
-using pim::multisplit;
-using pim::scan_counts;
-using pim::Split;
-
 constexpr uint32_t kM1 = 0x9E3779B1u;  // lane_model_encode.py:183-184
 constexpr uint32_t kM2 = 0x85EBCA77u;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
@@ -151,9 +162,10 @@ constexpr int kMaxBlockSize = 2 * kHalf;
 constexpr int kPad = 64;  // the longest rung's window
 constexpr int kMaxThreads = 1024;
 constexpr int kSteps = kHalf / kMaxThreads;  // most rows a thread walks in a pass
-constexpr int kHeld = 16;  // of them held in registers; the rest parked in shared memory
-constexpr int kBins = 64;                    // digits of at most 6 bits
-constexpr int kPasses = 3;                   // 6+6+5 or 6+5+5 bits of key
+constexpr int kHeld = 32;  // of them held in registers; any rest parked in shared memory
+constexpr int kBins = 512;                   // digits of at most 9 bits
+constexpr int kPasses = 2;                   // 9+8 or 8+8 bits of key
+constexpr int kMatchAny = 0;                 // peers: 1 __match_any_sync, 0 the digit's ballots
 constexpr int kMaxPrevK = 8;
 constexpr int kMinWindow = 512;
 constexpr size_t kMaxSharedBytes = 232448;  // per-block limit on sm_90
@@ -193,24 +205,27 @@ __host__ __device__ inline int region_bytes(int bs) {
 
 __host__ __device__ inline size_t shared_bytes(int bs) {
   return static_cast<size_t>(region_bytes(bs)) + 4u * buffer_words(bs) +
-         2u * kBins * (block_threads(bs) / 32) + 4u * 32;
+         4u * (kBins / 2) * (block_threads(bs) / 32 + 1) + 4u * 32;
 }
 
-// The stride of the rung 4 << bit: 2 bits of log2(stride) per rung.
-__host__ __device__ inline int rung_stride(int stride_code, int bit) {
-  return 1 << ((stride_code >> (2 * bit)) & 3);
+// log2 of the stride of the rung 4 << bit: 2 bits per rung. Strides are
+// powers of two, so a rung's sizes below are shifts: kept cheap to recompute,
+// they cost the sort no registers (divisions by the stride were kept live
+// across it and spilled one).
+__host__ __device__ inline int rung_shift(int stride_code, int bit) {
+  return (stride_code >> (2 * bit)) & 3;
 }
 
 // A rung's rows in the block padded to its power-of-two sort size.
-__host__ __device__ inline int padded_rows(int bs, int stride) {
-  const int rows = sort_size(bs) / stride;
+__host__ __device__ inline int padded_rows(int bs, int shift) {
+  const int rows = sort_size(bs) >> shift;
   return rows > 1 ? rows : 1;
 }
 
 // Rows of a rung's window group: window / stride, or all its padded rows.
-__host__ __device__ inline int group_rows(int bs, int stride, int window) {
-  const int rows = padded_rows(bs, stride);
-  return (window > 0 && window / stride < rows) ? window / stride : rows;
+__host__ __device__ inline int group_rows(int bs, int shift, int window) {
+  const int rows = padded_rows(bs, shift);
+  return (window > 0 && (window >> shift) < rows) ? window >> shift : rows;
 }
 
 __device__ __forceinline__ uint32_t word4(const uint8_t* s, int q) {
@@ -248,16 +263,21 @@ __device__ __forceinline__ uint32_t hash_at(const uint8_t* s, int p, int rung) {
 // Stable LSD radix sort of the words w[0, steps * nt) on bits [pos_bits, 32),
 // by the whole CTA; warp k owns words [k * 32 * steps, (k + 1) * 32 * steps).
 // A thread holds its first kHeld words of a pass in registers and parks the
-// rest in `parked` ((steps - kHeld) * nt words) between the sweeps.
-__device__ void radix_sort(uint32_t* words, uint32_t* parked, uint16_t* hist, uint32_t* tot, int steps,
+// rest in `parked` ((steps - kHeld) * nt words) between the sweeps. hist holds
+// each warp's column of digit counts (wide_slot), (kBins / 2) x (nw + 1) words.
+__device__ void radix_sort(uint32_t* words, uint32_t* parked, uint32_t* hist, uint32_t* tot, int steps,
                            int pos_bits, int tid, int nt) {
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
   const uint32_t lt = (1u << lane) - 1;  // lanemask_lt
-  uint32_t* slice = words + warp * 32 * steps + lane;
+  const uint32_t* slice = words + warp * 32 * steps + lane;
+  uint32_t* column = hist + warp;  // this warp's counts, then its running offsets
+  uint16_t* column16 = reinterpret_cast<uint16_t*>(column);
   for (int pass = 0, shift = pos_bits; pass < kPasses; ++pass) {
-    const int bits = (pass == 0 || (pass == 1 && pos_bits == 15)) ? 6 : 5;  // 6+6+5 or 6+5+5
+    const int bits = (pass == 0 && pos_bits == 15) ? 9 : 8;  // 9+8 or 8+8
+    const uint32_t digit = (1u << bits) - 1;
+    for (int j = lane; j < (1 << bits) / 2; j += 32) column[j * (nw + 1)] = 0;
+    __syncwarp();
     uint32_t w[kHeld];
-    uint32_t c_lo = 0, c_hi = 0;  // words of digit lane and lane + 32 in this warp's slice
 #pragma unroll
     for (int i = 0; i < kSteps; ++i) {
       if (i < steps) {
@@ -267,27 +287,26 @@ __device__ void radix_sort(uint32_t* words, uint32_t* parked, uint16_t* hist, ui
         } else {
           parked[(i - kHeld) * nt + tid] = x;
         }
-        const Split sp = multisplit(x, shift, bits, lane);
-        c_lo += __popc(sp.own_lo);
-        c_hi += __popc(sp.own_hi);
+        const uint32_t d = (x >> shift) & digit;
+        atomicAdd(column + (d >> 1) * (nw + 1), 1u << ((d & 1) << 4));
       }
     }
-    hist[lane * nw + warp] = static_cast<uint16_t>(c_lo);
-    hist[(lane + 32) * nw + warp] = static_cast<uint16_t>(c_hi);
     __syncthreads();
-    scan_counts(hist, tot, tid, nt);
+    pim::scan_wide_counts(hist, tot, bits, tid, nt);
     __syncthreads();
-    uint32_t run_lo = hist[lane * nw + warp], run_hi = hist[(lane + 32) * nw + warp];
 #pragma unroll
     for (int i = 0; i < kSteps; ++i) {
       if (i < steps) {
         const uint32_t x = i < kHeld ? w[i] : parked[(i - kHeld) * nt + tid];
-        const Split sp = multisplit(x, shift, bits, lane);
-        const uint32_t lo = __shfl_sync(~0u, run_lo, sp.digit & 31);
-        const uint32_t hi = __shfl_sync(~0u, run_hi, sp.digit & 31);
-        words[(sp.digit < 32 ? lo : hi) + __popc(sp.peers & lt)] = x;
-        run_lo += __popc(sp.own_lo);
-        run_hi += __popc(sp.own_hi);
+        const uint32_t d = (x >> shift) & digit;
+        const uint32_t peers = pim::peers_of<kMatchAny != 0>(d, bits);
+        const uint32_t rank = __popc(peers & lt);
+        uint16_t* h = column16 + pim::wide_slot(d, nw);  // the digit's running offset in this warp
+        const uint32_t base = *h;
+        words[base + rank] = x;
+        __syncwarp();  // every peer has read the offset
+        if (rank == 0) *h = static_cast<uint16_t>(base + __popc(peers));
+        __syncwarp();  // the next step reads it
       }
     }
     __syncthreads();
@@ -361,8 +380,8 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
   uint32_t* s_parked = reinterpret_cast<uint32_t*>(smem);
   uint16_t* s_near = reinterpret_cast<uint16_t*>(smem);
   uint32_t* s_words = reinterpret_cast<uint32_t*>(smem + region_bytes(bs));  // buffer_words(bs)
-  uint16_t* s_hist = reinterpret_cast<uint16_t*>(s_words + buffer_words(bs));      // kBins * warps
-  uint32_t* s_tot = reinterpret_cast<uint32_t*>(s_hist + kBins * (nt >> 5));        // 32
+  uint32_t* s_hist = s_words + buffer_words(bs);                  // (kBins / 2) * (warps + 1)
+  uint32_t* s_tot = s_hist + (kBins / 2) * ((nt >> 5) + 1);      // 32
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -371,9 +390,10 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
   const int n_rungs = __popc(rung_mask);
   uint16_t* planes = near + static_cast<size_t>(b) * n_rungs * bs;  // [n_rungs][bs]
   uint32_t* fh = first_half + static_cast<size_t>(b) * kHalf;        // used by a split sort
-  // Traced: thread 0's last clock64() reading. The total's counter takes
-  // -start now and the end at the end, as trace_start does for the span.
-  [[maybe_unused]] long long last = 0;
+  // Traced: thread 0's last clock64() reading, in shared memory so that it
+  // takes no register across the sort. The total's counter takes -start now
+  // and the end at the end, as trace_start does for the span.
+  [[maybe_unused]] __shared__ long long last;
   if constexpr (kTrace) {
     if (tid == 0) {
       pim::trace_start(trace, pim::globaltimer());
@@ -387,13 +407,14 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
   for (int bit = 0, ri = 0; bit < 5; ++bit) {
     if (!(rung_mask & (1 << bit))) continue;
     const int rung = 4 << bit;
-    const int stride = rung_stride(stride_code, bit);
-    const int rows_pad = padded_rows(bs, stride);
+    const int sh = rung_shift(stride_code, bit);
+    const int stride = 1 << sh;
+    const int rows_pad = padded_rows(bs, sh);
     const int pos_bits = rows_pad > kHalf ? 16 : 15;
     const uint32_t pos_mask = (1u << pos_bits) - 1;
     const uint32_t key_mask = (1u << (32 - pos_bits)) - 1;
-    const int cnt = (bs + stride - 1) / stride;  // real rows
-    const int group = group_rows(bs, stride, window);
+    const int cnt = (bs + stride - 1) >> sh;  // real rows
+    const int group = group_rows(bs, sh, window);
     const int chunk = min(kHalf, rows_pad);  // rows sorted at once
     const bool split = group > chunk;        // stride 1, no window, above 32768 rows
     uint16_t* plane = planes + static_cast<size_t>(ri++) * bs;
@@ -581,8 +602,7 @@ extern "C" int pim_match_blocks(const void* blocks, const void* lens, void* mlen
   bool split = false;  // some rung sorts its 32 KB halves in turn
   for (int bit = 0; bit < 5; ++bit) {
     if (rung_mask & (1 << bit)) {
-      const int stride = rung_stride(stride_code, bit);
-      split = split || group_rows(block_size, stride, window) > kHalf;
+      split = split || group_rows(block_size, rung_shift(stride_code, bit), window) > kHalf;
     }
   }
   if (split && first_half == nullptr) return cudaErrorInvalidValue;

@@ -25,6 +25,7 @@ import torch
 
 from pim_compression_tpu_torch import TorchCodecConfig
 from pim_compression_tpu_torch.ops import hopper_encode, hopper_match
+from pim_compression_tpu_torch.runtime import profiling
 from pim_compression_tpu_torch.scripts import common
 from pim_compression_tpu_torch.utils import streams
 
@@ -80,6 +81,31 @@ def time_cases(dev, todo, check=None) -> list[dict]:
         outputs.append((mlen, mlag))
         del kept
     return records, outputs
+
+
+def traced_phases(dev, todo) -> list[dict]:
+    """The traced kernel (its ``kTrace`` instantiation) on each zero-flag
+    case: mean device ms of REPS launches, each with a zeroed record of its
+    own, the share of the CTA-cycles in each phase (``profiling.MATCH_PHASES``)
+    and the sort's ms as the benchmark's ``match_sort_ms`` reads it (the
+    traced ms x sort / all)."""
+    out = []
+    for name, bs, fields, blocks_np, lens_np in todo:
+        if "zero-flag" not in name:
+            continue
+        knobs = hopper_encode.encode_knobs(TorchCodecConfig(block_size=bs, **fields))
+        blocks, lens = torch.from_numpy(blocks_np).to(dev), torch.from_numpy(lens_np).to(dev)
+        hopper_match._on_card(blocks, lens, knobs)  # checks the knobs, fills in rungs and strides
+        outs = hopper_match._outputs(blocks, knobs)
+        recs = torch.zeros((REPS + 1, profiling.RECORD_WORDS), dtype=torch.int64, device=dev)
+        slots = iter(range(REPS + 1))
+        ms = common.event_seconds(
+            lambda: hopper_match._launch(blocks, lens, outs, knobs, recs[next(slots)].data_ptr()), REPS) * 1e3
+        cycles = recs[1:, 4:4 + len(profiling.COUNTERS["match"])].sum(0).tolist()
+        phases = dict(zip(profiling.COUNTERS["match"], cycles))
+        share = {k: phases[k] / phases["total"] for k in profiling.MATCH_PHASES}
+        out.append({"case": name, "traced_ms": ms, "share": share, "sort_ms": ms * share["sort"]})
+    return out
 
 
 def run(device) -> list[dict]:

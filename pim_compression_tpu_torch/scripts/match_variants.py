@@ -4,15 +4,18 @@
 
 Each variant in VARIANTS names the ``constexpr int`` constants of
 ``csrc/match.cu`` it replaces (the CTA's threads ``kMaxThreads``, the sort
-words a thread holds in registers ``kHeld``, the radix passes ``kPasses``:
-0 leaves the words unsorted, a wrong output whose time is the kernel's
+words a thread holds in registers ``kHeld``, how a warp-step finds the
+lanes that share a digit ``kMatchAny``, the radix passes ``kPasses``: 0
+leaves the words unsorted, a wrong output whose time is the kernel's
 without its sort). It is compiled with
 ``ops/_build.py``'s nvcc flags into ``build/match_variants/<name>/``, its
 ptxas report for the match kernel (registers, stack frame, spills) is kept,
 and it runs ``match_time``'s cases in place of the default build: each
 record says whether its lengths and lags equal the default build's on every
 position (a variant that drops work may not), and its time is taken the
-same way. The default (the source as it is) is built the
+same way. Its traced instantiation runs the zero-flag cases too, with the
+share of each phase (``match_time.traced_phases``): ``no-sort``'s sort phase
+is the word build alone. The default (the source as it is) is built the
 same way and timed first and last, so the spread of one build's time shows
 beside the variants'. Writes
 ``build/probes/match_variants.json`` and prints one JSON line.
@@ -31,9 +34,10 @@ from pim_compression_tpu_torch.scripts import common, match_time
 
 # name -> {constant: value}. kHeld ranges over [kSteps / 2, kSteps], kSteps = 32768 / kMaxThreads.
 VARIANTS = {
-    "1024-threads-32-held": {"kHeld": 32},
+    "1024-threads-16-held": {"kHeld": 16},  # half of each thread's words parked in the byte region
     "512-threads-32-held": {"kMaxThreads": 512, "kHeld": 32},
     "512-threads-64-held": {"kMaxThreads": 512, "kHeld": 64},
+    "match-any": {"kMatchAny": 1},  # peers from __match_any_sync in place of the digit's ballots
     "no-sort": {"kPasses": 0},  # drops the radix passes: wrong output, the time without the sort
 }
 
@@ -93,7 +97,8 @@ def run(device) -> list[dict]:
             _build._lib = handle  # hopper_match.match_blocks launches through _build.load()
             records, outputs = match_time.time_cases(dev, todo, check=want)
             want = want or outputs
-            out.append({"variant": name, "consts": VARIANTS.get(name, {}), "ptxas": ptxas, "cases": records})
+            out.append({"variant": name, "consts": VARIANTS.get(name, {}), "ptxas": ptxas, "cases": records,
+                        "traced": match_time.traced_phases(dev, todo)})
     finally:
         _build._lib = default
     return out
