@@ -84,12 +84,30 @@
 // utils/sweep_table.py). Inputs and outputs are 4 bytes per position, so
 // device memory is not the limit. 512 threads, budgets of 4, 16 and 32,
 // no handoff and 18-bit keys were slower (scripts/sweep_variants.py).
+//
+// Traced (kTrace, trace.cuh): thread 0 reads clock64() after the barriers
+// that end each step and adds the cycles since its last reading to the
+// launch's record: c[0] stage (the staged bytes, the words and keys), c[1]
+// sort (the radix passes), c[2] ranks, c[3] + c[4] the walk, to a barrier
+// only the traced kernel has, c[5] the CTA's cycles from its start. The walk
+// is split between the lane walk (c[3]) and the warps' rounds (c[4]) in the
+// ratio of the cycles each warp's lane 0 spent in each (clock64() where the
+// warp has converged; the write-out counts in neither). Counters: c[6]
+// positions walked (4 bytes left), c[7] entries the lanes visited (the one
+// that ends a walk included), c[8] positions handed to their warp, c[9]
+// entries visited in the warps' rounds (32 a round), c[10] entries past the
+// window (a coarse lag) the walks reached, lanes' and rounds'. A lane keeps
+// its counts in one register (tally) while it walks; its warp's lane 0 sums
+// them in shared memory once a position, and thread 0 folds the CTA's into
+// the record. The record's static shared memory (1160 bytes) leaves two CTAs
+// an SM at 8 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "radix.cuh"
 #include "staging.cuh"
+#include "trace.cuh"
 
 namespace {
 
@@ -189,11 +207,27 @@ __device__ __forceinline__ void put(uint8_t* mlen, uint16_t* mlag, size_t at, in
   mlag[at] = len ? static_cast<uint16_t>(0xFFFF - (best & 0xFFFF)) : 0;
 }
 
-template <int kMode>
+// The record's words (profiling.COUNTERS["sweep"]) and a warp's counts.
+enum Word { kStage = 0, kSort = 1, kRanks = 2, kLanes = 3, kRounds = 4, kTotal = 5, kPositions = 6 };
+enum Count { kWalked = 0, kLaneEntries = 1, kHanded = 2, kRoundEntries = 3, kCoarse = 4, kCounts = 5 };
+
+// Traced: thread 0 adds the cycles since its last reading to `word`.
+template <bool kTrace>
+__device__ __forceinline__ void phase_end(pim::TraceRecord* trace, long long& last, Word word, int tid) {
+  if constexpr (kTrace) {
+    if (tid == 0) {
+      const long long now = clock64();
+      atomicAdd(&trace->c[word], static_cast<unsigned long long>(now - last));
+      last = now;
+    }
+  }
+}
+
+template <int kMode, bool kTrace>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
     sweep_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ lens,
                         uint8_t* __restrict__ mlen, uint16_t* __restrict__ mlag, int bs, int window,
-                        int coarse) {
+                        int coarse, pim::TraceRecord* trace) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int n = table_rows(bs);
   uint32_t* w = reinterpret_cast<uint32_t*>(smem);
@@ -205,6 +239,23 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(max(lens[b], 0), bs);
   const size_t row = static_cast<size_t>(b) * bs;
+  // Traced: thread 0's last clock64() reading (the total's counter takes
+  // -start now and the end at the end, as trace_start does for the span),
+  // and each warp's cycles in the lane walk and in its rounds and counts.
+  [[maybe_unused]] __shared__ long long last;
+  [[maybe_unused]] __shared__ unsigned long long cycles[kWarps][2];
+  [[maybe_unused]] __shared__ uint32_t counts[kWarps][kCounts];
+  if constexpr (kTrace) {
+    if (tid == 0) {
+      pim::trace_start(trace, pim::globaltimer());
+      last = clock64();
+      atomicAdd(&trace->c[kTotal], 0ull - static_cast<unsigned long long>(last));
+    }
+    if (tid < kWarps) {
+      cycles[tid][0] = cycles[tid][1] = 0;
+      for (int k = 0; k < kCounts; ++k) counts[tid][k] = 0;
+    }
+  }
 
   // 1. Words and keys.
   const uint8_t* s_data = reinterpret_cast<uint8_t*>(dst);
@@ -219,6 +270,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
     src[p] = (key << kPosBits) | static_cast<uint32_t>(p);
   }
   __syncthreads();
+  phase_end<kTrace>(trace, last, kStage, tid);
 
   // 2. The table: a stable radix sort of the key field, then each position's rank.
   const int steps = n / kThreads;  // words a lane takes in a sweep
@@ -251,13 +303,18 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
     src = dst;
     dst = t;
   }
+  phase_end<kTrace>(trace, last, kSort, tid);
   const uint32_t* table = src;
   uint16_t* rank = reinterpret_cast<uint16_t*>(dst);
   for (int r = tid; r < n; r += kThreads) rank[table[r] & kPosMask] = static_cast<uint16_t>(r);
   __syncthreads();
+  phase_end<kTrace>(trace, last, kRanks, tid);
 
   // 3. The walk, nearest first; a lane's first kBudget entries, then its warp's rounds.
   for (int p = tid; p < n; p += kThreads) {  // the same trip count on every lane of a warp
+    if constexpr (kTrace) {
+      if (lane == 0) cycles[warp][0] -= clock64();
+    }
     const bool live = p + 4 <= len;
     uint32_t w0 = 0, lo = 0;
     int r = -1, maxk = 0, top = 0;
@@ -272,12 +329,16 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
     }
     int best_len = 0, best_d = 0;
     bool open = live;
+    // Traced: the warp's rounds (low half, the same on every lane) and this
+    // lane's entries past the window, in its walk and its rounds (high half).
+    [[maybe_unused]] uint32_t tally = 0;
     uint32_t next = r >= 0 ? table[r] : 0u;  // the entry at rank r, loaded a step ahead
     for (int s = 0; s < kBudget && open; ++s) {
       const uint32_t entry = next;
       const bool in_table = r-- >= 0;
       next = r >= 0 ? table[r] : 0u;
       const Entry e = look<kMode>(entry, in_table, w, p, lo, w0, window);
+      if constexpr (kTrace) tally += static_cast<uint32_t>(e.d > window) << 16;  // an ending entry has d 0
       if (e.end) {
         open = false;
       } else if (e.cand) {
@@ -290,6 +351,14 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
       }
     }
     int best = best_len ? (best_len << 16) | (0xFFFF - best_d) : 0;  // (length << 16) | (0xFFFF - lag)
+    if constexpr (kTrace) {
+      __syncwarp();
+      if (lane == 0) {
+        const long long now = clock64();
+        cycles[warp][0] += now;
+        cycles[warp][1] -= now;
+      }
+    }
 
     // The handoff: every value in a round's loop condition is the same on all lanes.
     for (uint32_t pending = __ballot_sync(~0u, open); pending; pending &= pending - 1) {
@@ -309,25 +378,60 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
           if (l) cand = (l << 16) | (0xFFFF - e.d);
         }
         cur = max(cur, static_cast<int>(__reduce_max_sync(~0u, static_cast<unsigned>(cand))));
+        if constexpr (kTrace) tally += 1 + (static_cast<uint32_t>(e.d > window) << 16);
         if (__any_sync(~0u, e.end) || (cur >> 16) == htop) break;
       }
       if (lane == from) best = cur;
     }
+    if constexpr (kTrace) {
+      // A step takes r one lower: the lane visited rank[p] - 1 - r entries.
+      const uint32_t steps = live ? rank[p] - 1 - r : 0;
+      const uint32_t walked = __ballot_sync(~0u, live), handed = __ballot_sync(~0u, open);
+      const uint32_t lane_entries = __reduce_add_sync(~0u, steps), past = __reduce_add_sync(~0u, tally >> 16);
+      if (lane == 0) {
+        cycles[warp][1] += clock64();
+        counts[warp][kWalked] += __popc(walked);
+        counts[warp][kLaneEntries] += lane_entries;
+        counts[warp][kHanded] += __popc(handed);
+        counts[warp][kRoundEntries] += 32 * (tally & 0xFFFF);
+        counts[warp][kCoarse] += past;
+      }
+    }
     if (p < bs) put(mlen, mlag, row + p, best);
+  }
+  if constexpr (kTrace) {
+    __syncthreads();
+    if (tid == 0) {
+      const long long now = clock64();
+      const unsigned long long walk = static_cast<unsigned long long>(now - last);
+      unsigned long long in_lanes = 0, in_rounds = 0, sum[kCounts] = {};
+      for (int k = 0; k < kWarps; ++k) {
+        in_lanes += cycles[k][0];
+        in_rounds += cycles[k][1];
+        for (int j = 0; j < kCounts; ++j) sum[j] += counts[k][j];
+      }
+      const unsigned long long lanes = in_lanes + in_rounds ? walk * in_lanes / (in_lanes + in_rounds) : walk;
+      atomicAdd(&trace->c[kLanes], lanes);
+      atomicAdd(&trace->c[kRounds], walk - lanes);
+      atomicAdd(&trace->c[kTotal], static_cast<unsigned long long>(now));
+      for (int j = 0; j < kCounts; ++j) atomicAdd(&trace->c[kPositions + j], sum[j]);
+      pim::trace_end(trace, pim::globaltimer());
+    }
   }
 }
 
-// One launch of the kernel for mode kMode.
+// One launch of the kernel for mode kMode, traced where trace is not null.
 template <int kMode>
 cudaError_t launch(const void* blocks, const void* lens, void* mlen, void* mlag, int num_blocks, int block_size,
-                   int window, int coarse, cudaStream_t stream) {
+                   int window, int coarse, cudaStream_t stream, pim::TraceRecord* trace) {
   const size_t smem = shared_bytes(block_size);
-  const cudaError_t st = cudaFuncSetAttribute(sweep_blocks_kernel<kMode>,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  auto kernel = trace ? sweep_blocks_kernel<kMode, true> : sweep_blocks_kernel<kMode, false>;
+  const cudaError_t st = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              static_cast<int>(smem));
   if (st != cudaSuccess) return st;
-  sweep_blocks_kernel<kMode><<<num_blocks, kThreads, smem, stream>>>(
+  kernel<<<num_blocks, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(lens), static_cast<uint8_t*>(mlen),
-      static_cast<uint16_t*>(mlag), block_size, window, coarse);
+      static_cast<uint16_t*>(mlag), block_size, window, coarse, trace);
   return cudaGetLastError();
 }
 
@@ -337,11 +441,12 @@ cudaError_t launch(const void* blocks, const void* lens, void* mlen, void* mlag,
 // block_size], lens int32[num_blocks]; mlen uint8 and mlag uint16 (an int16
 // tensor's bits) [num_blocks, block_size]. window, coarse and granular as
 // hopper_sweep.sweep_knobs normalises them (coarse 0 = no coarse search).
-// Returns cudaGetLastError() after the launch (0 on success). Does not
-// synchronise.
+// trace is a zeroed pim::TraceRecord on the device for the traced kernel, or
+// null for the plain one. Returns cudaGetLastError() after the launch (0 on
+// success). Does not synchronise.
 extern "C" int pim_sweep_blocks(const void* blocks, const void* lens, void* mlen, void* mlag,
                                 int num_blocks, int block_size, int window, int coarse,
-                                int granular, int device, void* stream) {
+                                int granular, int device, void* stream, void* trace) {
   if (num_blocks <= 0) return 0;
   if (block_size <= 0 || block_size > kMaxBlockSize || window < 0 || coarse < 0) {
     return cudaErrorInvalidValue;
@@ -350,9 +455,10 @@ extern "C" int pim_sweep_blocks(const void* blocks, const void* lens, void* mlen
   const cudaError_t st = cudaSetDevice(device);
   if (st != cudaSuccess) return st;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (coarse <= window) return launch<kFine>(blocks, lens, mlen, mlag, num_blocks, block_size, window, coarse, s);
-  if (granular) return launch<kGranular>(blocks, lens, mlen, mlag, num_blocks, block_size, window, coarse, s);
-  return launch<kSampled>(blocks, lens, mlen, mlag, num_blocks, block_size, window, coarse, s);
+  pim::TraceRecord* t = static_cast<pim::TraceRecord*>(trace);
+  if (coarse <= window) return launch<kFine>(blocks, lens, mlen, mlag, num_blocks, block_size, window, coarse, s, t);
+  if (granular) return launch<kGranular>(blocks, lens, mlen, mlag, num_blocks, block_size, window, coarse, s, t);
+  return launch<kSampled>(blocks, lens, mlen, mlag, num_blocks, block_size, window, coarse, s, t);
 }
 
 // CTAs of the sweep kernel (granular; every mode takes the same shared
@@ -363,12 +469,12 @@ extern "C" int pim_sweep_ctas_per_sm(int block_size, int device) {
   const size_t smem = shared_bytes(block_size);
   cudaError_t st = cudaSetDevice(device);
   if (st == cudaSuccess) {
-    st = cudaFuncSetAttribute(sweep_blocks_kernel<kGranular>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    st = cudaFuncSetAttribute(sweep_blocks_kernel<kGranular, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
   }
   int ctas = 0;
   if (st == cudaSuccess) {
-    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, sweep_blocks_kernel<kGranular>, kThreads, smem);
+    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, sweep_blocks_kernel<kGranular, false>, kThreads, smem);
   }
   return st == cudaSuccess ? ctas : -static_cast<int>(st);
 }

@@ -1,11 +1,11 @@
-// The record a traced codec kernel (decode.cu, match.cu, emit.cu) writes for
-// one launch, read by runtime/profiling.py.
+// The record a traced codec kernel (decode.cu, match.cu, sweep.cu, emit.cu)
+// writes for one launch, read by runtime/profiling.py.
 //
 // Each kernel is a template on kTrace. The plain instantiation (kTrace
 // false) takes a null record and compiles to the kernel without tracing;
 // the traced one reduces what it counts on the device into one zeroed
-// record, with a few atomics per warp (decode, emit) or per CTA (match),
-// and writes nothing per position or element.
+// record, with a few atomics per warp (decode, emit) or per CTA (match,
+// sweep), and writes nothing per position or element.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,7 +14,7 @@
 namespace pim {
 
 // Sixteen 64-bit words, zero before the launch. Walks (decode, emit: one a
-// warp) or CTAs (match) each fold their span in; neg_start keeps ~start so
+// warp) or CTAs (match, sweep) each fold their span in; neg_start keeps ~start so
 // that a max over a zeroed word gives the earliest start. Times are
 // %globaltimer nanoseconds.
 struct TraceRecord {

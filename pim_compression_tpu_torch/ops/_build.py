@@ -115,7 +115,7 @@ def load() -> ctypes.CDLL:
         lib.pim_sweep_blocks.argtypes = [
             ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag
             i32, i32, i32, i32, i32,  # num_blocks, block_size, window, coarse, granular
-            i32, ptr,  # device, stream
+            i32, ptr, ptr,  # device, stream, trace record (null: the plain kernel)
         ]
         lib.pim_sweep_ctas_per_sm.restype = i32
         lib.pim_sweep_ctas_per_sm.argtypes = [i32, i32]  # block_size, device

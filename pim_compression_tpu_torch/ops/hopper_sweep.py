@@ -30,9 +30,11 @@ stay below 16384, so ``mlag`` holds them as plain int16.
 from __future__ import annotations
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from pim_compression_tpu_torch.ops import _build
 from pim_compression_tpu_torch.ops.hopper_match import _check_inputs, _shift_down, _shift_up
+from pim_compression_tpu_torch.runtime import profiling
 
 # pallas_encode.py:47: the sweep's block-size envelope.
 MAX_SWEEP_BLOCK = 16384
@@ -222,33 +224,69 @@ def sweep_match(
     Arguments and result as ``sweep_match_torch`` (blocks and lens
     contiguous, on one device), equal to it on every position. A CPU tensor
     is matched by ``sweep_match_torch``. The launch goes on the current
-    stream and does not synchronise.
+    stream and does not synchronise. While a ``torch.profiler`` session
+    records, the traced kernel runs and the checks, allocations and launch
+    are host spans (``runtime/profiling.py``).
     """
-    global LAUNCHES
-    _check(blocks, lens, window, coarse_window)
+    knobs = dict(window=window, coarse_window=coarse_window, granular=granular)
+    if _autograd_profiler._is_profiler_enabled and profiling.KERNEL_SPANS is not False:
+        return _sweep_traced(blocks, lens, knobs)
+    if not _on_card(blocks, lens, knobs):
+        return sweep_match_torch(blocks, lens, **knobs)
+    mlen, mlag = _outputs(blocks)
+    if blocks.shape[0]:
+        _launch(blocks, lens, mlen, mlag, knobs, None)
+    return mlen, mlag
+
+
+def _sweep_traced(blocks, lens, knobs: dict):
+    """``sweep_match`` with the traced kernel, a span around each part."""
+    with torch.profiler.record_function("sweep_match.check"):
+        on_card = _on_card(blocks, lens, knobs)
+    if not on_card:
+        return sweep_match_torch(blocks, lens, **knobs)
+    with torch.profiler.record_function("sweep_match.alloc"):
+        mlen, mlag = _outputs(blocks)
+    if blocks.shape[0]:
+        with torch.profiler.record_function("sweep_match.launch"):
+            _launch(blocks, lens, mlen, mlag, knobs, profiling.launch_record("sweep", blocks.device))
+    return mlen, mlag
+
+
+def _on_card(blocks, lens, knobs: dict) -> bool:
+    """Check the arguments: True for CUDA tensors, False for CPU ones."""
+    _check(blocks, lens, knobs["window"], knobs["coarse_window"])
     if blocks.device.type == "cpu":
-        return sweep_match_torch(blocks, lens, window=window, coarse_window=coarse_window, granular=granular)
+        return False
     if blocks.device.type != "cuda":
         raise ValueError(f"sweep_match takes CPU or CUDA tensors, not {blocks.device}")
     if not (blocks.is_contiguous() and lens.is_contiguous()):
         raise ValueError("sweep_match needs contiguous tensors")
+    return True
+
+
+def _outputs(blocks) -> tuple[torch.Tensor, torch.Tensor]:
+    nb, bs = blocks.shape
+    mlen = torch.empty((nb, bs), dtype=torch.uint8, device=blocks.device)
+    mlag = torch.empty((nb, bs), dtype=torch.int16, device=blocks.device)
+    return mlen, mlag
+
+
+def _launch(blocks, lens, mlen, mlag, knobs: dict, trace) -> None:
+    """Launch the kernel on the current stream; ``trace`` is a record's
+    address for the traced kernel, or None for the plain one."""
+    global LAUNCHES
     nb, bs = blocks.shape
     dev = blocks.device
-    mlen = torch.empty((nb, bs), dtype=torch.uint8, device=dev)
-    mlag = torch.empty((nb, bs), dtype=torch.int16, device=dev)
-    if nb == 0:
-        return mlen, mlag
-    lib = _build.load()
-    rc = lib.pim_sweep_blocks(
+    rc = _build.load().pim_sweep_blocks(
         blocks.data_ptr(), lens.data_ptr(), mlen.data_ptr(), mlag.data_ptr(),
-        nb, bs, window, coarse_window, int(granular),
+        nb, bs, knobs["window"], knobs["coarse_window"], int(knobs["granular"]),
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, trace,
     )
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return mlen, mlag
 
 
 def ctas_per_sm(block_size: int, device=None) -> int:

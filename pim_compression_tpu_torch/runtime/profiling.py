@@ -12,16 +12,17 @@ the host's time to stage and enqueue, and ``d2h`` holds the wait for each
 batch (``runtime.api``).
 
 Kernel spans. While a ``torch.profiler`` session records, unless
-``KERNEL_SPANS`` is False, the entries of the three codec kernels
+``KERNEL_SPANS`` is False, the entries of the four codec kernels
 (``ops.hopper_decode.decode_blocks``, ``ops.hopper_match.match_blocks``,
-``ops.hopper_encode.emit_blocks``) launch each kernel's traced
+``ops.hopper_sweep.sweep_match``, ``ops.hopper_encode.emit_blocks``)
+launch each kernel's traced
 instantiation with a record of its own (``csrc/trace.cuh``) and open a
 ``record_function`` span around their checks, their allocations and the
 launch (``<entry>.check``, ``.alloc``, ``.launch``). Outside a session they
 read one attribute and launch the plain kernel. A record holds one launch's
 earliest start and latest end (``%globaltimer``), the sum and number of its
-walks (decode, emit: a warp's block) or CTAs (match), and the kernel's
-counters, ``COUNTERS``. The first traced launch of a session on a device
+walks (decode, emit: a warp's block) or CTAs (match, sweep), and the
+kernel's counters, ``COUNTERS``. The first traced launch of a session on a device
 allocates the session's records there (``CAPACITY``, zeroed) and calibrates
 the device's ``%globaltimer`` against the host clock (``CLOCK_REALTIME``,
 the clock ``torch.profiler`` puts its host events on); later launches take
@@ -89,16 +90,24 @@ KERNEL_SPANS = None  # False: a profiler session runs the plain kernels, with no
 CAPACITY = 65536  # records of a session on a device; about 22,000 decode launches fill a 10 s window at 32 KB
 RECORD_WORDS = 16  # 64-bit words of a record (pim::TraceRecord)
 CALIBRATION_TRIES = 8
-KERNEL_NAMES = {"decode": "decode_blocks_kernel", "match": "match_blocks_kernel", "emit": "emit_blocks_kernel"}
+KERNEL_NAMES = {"decode": "decode_blocks_kernel", "match": "match_blocks_kernel", "sweep": "sweep_blocks_kernel",
+                "emit": "emit_blocks_kernel"}
 KERNELS = tuple(KERNEL_NAMES)
 MATCH_PHASES = ("stage", "sort", "lags", "select", "fold")
-# Each kernel's counters, the record's words 4, 5, ... in order: the decode's
-# elements walked, those on the general path, bytes copied by valid copy
-# elements and those of them read from the row past the ring; the match
-# kernel's CTA-cycles in each phase and in all (csrc/match.cu).
+SWEEP_PHASES = ("stage", "sort", "ranks", "lanes", "rounds")
+PHASES_OF = {"match": MATCH_PHASES, "sweep": SWEEP_PHASES}  # kernels that record CTA-cycles by phase
+# Each of the four kernels' counters, the record's words 4, 5, ... in order:
+# the decode's elements walked, those on the general path, bytes copied by
+# valid copy elements and those of them read from the row past the ring; the
+# match kernel's CTA-cycles in each phase and in all (csrc/match.cu); the
+# sweep kernel's CTA-cycles in each phase and in all, then the positions it
+# walked, the entries its lanes visited, the positions handed to a warp, the
+# entries the warps' rounds visited (32 a round) and the entries past the
+# window, of both (csrc/sweep.cu); none of the emit's.
 COUNTERS = {
     "decode": ("elements", "general", "copied", "from_row"),
     "match": (*MATCH_PHASES, "total"),
+    "sweep": (*SWEEP_PHASES, "total", "positions", "lane_entries", "handed", "round_entries", "coarse_entries"),
     "emit": (),
 }
 
@@ -123,7 +132,7 @@ class KernelSummary:
     kernel: str
     launches: int  # launches recorded
     dropped: int  # launches left unrecorded by a full buffer (they ran plain)
-    walks: int  # the launches' walks (decode, emit: one a warp's block) or CTAs (match)
+    walks: int  # the launches' walks (decode, emit: one a warp's block) or CTAs (match, sweep)
     span_ns: int  # their durations, summed
     window_ns: int  # over launches, walks x (latest end - earliest start), summed
     counters: dict  # COUNTERS[kernel] -> sum over launches
@@ -250,15 +259,15 @@ def reduce_records(records, kinds, dropped: dict | None = None, spans=None,
 
 def launch_args(kernel: str, record) -> dict:
     """What one launch's record says, for a trace event: its walks (CTAs),
-    walk balance, counters and, for the match kernel, each phase's share of
-    the CTA-cycles, in %."""
+    walk balance, counters and, for the match and sweep kernels, each
+    phase's share of the CTA-cycles, in %."""
     k = reduce_records(np.asarray(record)[None], [kernel])[kernel]
-    args = {"walks" if kernel != "match" else "ctas": k.walks}
+    args = {"ctas" if kernel in PHASES_OF else "walks": k.walks}
     if k.walk_balance is not None:
         args["walk_balance_%"] = round(100 * k.walk_balance, 3)
     args.update(k.counters)
-    if kernel == "match" and k.counters["total"]:
-        args.update({f"{p}_%": round(100 * k.share(p, "total"), 3) for p in MATCH_PHASES})
+    if kernel in PHASES_OF and k.counters["total"]:
+        args.update({f"{p}_%": round(100 * k.share(p, "total"), 3) for p in PHASES_OF[kernel]})
     return args
 
 
@@ -367,7 +376,7 @@ def launch_record(kernel: str, device) -> int | None:
 
 def kernel_summary() -> dict | None:
     """Each kernel's ``KernelSummary`` (keys ``"decode"``, ``"match"``,
-    ``"emit"``, those launched) of the latest profiler session, or None
+    ``"sweep"``, ``"emit"``, those launched) of the latest profiler session, or None
     where that session launched no traced kernel. Synchronises each device
     the session traced on, copies its records to the host and calibrates
     its clock again, so each launch's span is mapped onto the host clock

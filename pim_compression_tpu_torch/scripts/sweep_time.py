@@ -24,7 +24,9 @@ ptxas line (registers, spills) and CTAs per SM.
 (another checkout, e.g. the parent commit unpacked with ``git archive``)
 with the same flags and times both kernels in turns on the same tensors,
 parent, this, this, parent; each record of the parent says whether its
-output equals this kernel's. ``--steps`` needs no card: it runs the NumPy
+output equals this kernel's. Last, this build's traced kernel is timed
+against its plain one in turns, with each phase's share of its CTA-cycles
+and its walk's counters (``traced_cases``). ``--steps`` needs no card: it runs the NumPy
 mirror of the walk (``utils/sweep_table.py``) on the first 32 blocks of
 each case and reports the walk's steps per position and per warp (its
 lanes' longest walk plus its rounds). Writes ``build/probes/sweep_time.json``
@@ -106,6 +108,41 @@ def time_cases(todo, check=None) -> tuple[list[dict], list]:
     return records, outputs
 
 
+def traced_cases(todo) -> list[dict]:
+    """The traced kernel (its ``kTrace`` instantiation) beside the plain one
+    on each case: mean device ms of REPS launches of each, in turns (plain,
+    traced, traced, plain), each traced launch with a zeroed record of its
+    own; the share of the CTA-cycles in each phase
+    (``profiling.SWEEP_PHASES``), the walk's ms as the benchmark's
+    ``sweep_walk_ms`` reads it (the traced ms x the lanes' and rounds'
+    share), and the walk's counters a position."""
+    import torch
+
+    from pim_compression_tpu_torch.ops import hopper_sweep
+    from pim_compression_tpu_torch.runtime import profiling
+
+    out = []
+    for name, knobs, blocks, lens, _ in todo:
+        mlen, mlag = hopper_sweep._outputs(blocks)
+        recs = torch.zeros((2 * (REPS + 1), profiling.RECORD_WORDS), dtype=torch.int64, device=blocks.device)
+        slots = iter(range(len(recs)))
+        launch = {"plain": lambda: hopper_sweep._launch(blocks, lens, mlen, mlag, knobs, None),
+                  "traced": lambda: hopper_sweep._launch(blocks, lens, mlen, mlag, knobs, recs[next(slots)].data_ptr())}
+        ms = {"plain": [], "traced": []}
+        for kind in ("plain", "traced", "traced", "plain"):
+            ms[kind].append(common.event_seconds(launch[kind], REPS) * 1e3)
+        c = profiling.reduce_records(recs.cpu().numpy(), ["sweep"] * len(recs))["sweep"].counters
+        share = {k: c[k] / c["total"] for k in profiling.SWEEP_PHASES}
+        plain, traced = sum(ms["plain"]) / 2, sum(ms["traced"]) / 2
+        out.append({"case": name, "plain_ms": plain, "traced_ms": traced, "traced_over_plain": traced / plain,
+                    "share": share, "walk_ms": traced * (share["lanes"] + share["rounds"]),
+                    "entries_per_position": (c["lane_entries"] + c["round_entries"]) / c["positions"],
+                    "lane_entries_per_position": c["lane_entries"] / c["positions"],
+                    "handed_share": c["handed"] / c["positions"],
+                    "coarse_entries_per_position": c["coarse_entries"] / c["positions"]})
+    return out
+
+
 def inputs(dev, todo) -> list[tuple]:
     """Each case on the card, with the bound of its work (from the plain
     version's lengths and lags, which every build must give)."""
@@ -153,6 +190,8 @@ def run(device, parent: str | None = None) -> list[dict]:
             if name == "this":
                 want = want or outputs
             out.append({"build": name, "cases": records})
+        _build._lib = builds["this"][0]
+        out.append({"build": "this, traced against plain", "cases": traced_cases(todo)})
     finally:
         _build._lib = default
     if parent:  # the parent's first run had no outputs of this build to hold its own against

@@ -35,9 +35,10 @@ CPU, and counts the steps, so that the timing script can report them:
   chain or the reach, or the best reached ``top``.
 
 ``sweep_table`` returns the kernel's ``(mlen, mlag)`` and adds its counts
-to ``stats``: lane steps, handed-off positions, warp rounds, and the steps
-of each warp (its lanes' longest walk plus its rounds), the quantity that
-sets the kernel's time.
+to ``stats``: lane steps, handed-off positions, warp rounds, the entries
+past the window that the walks reached (``past_window``), and the steps of
+each warp (its lanes' longest walk plus its rounds), the quantity that sets
+the kernel's time. The traced kernel's counters are these counts.
 """
 
 from __future__ import annotations
@@ -203,6 +204,7 @@ def sweep_table(
         same = w[b[i], np.maximum(p[i] - d, 0)] == w0[i]
         stats["sampled_filtered"] += int((~ended & filtered).sum())
         stats["collisions"] += int((~ended & ~filtered & ~same).sum())
+        stats["past_window"] += int((~ended & (d > window)).sum())
         return ended, d, ~ended & ~filtered & same
 
     # The lane walk: each position its own chain, nearest first, at most budget entries.

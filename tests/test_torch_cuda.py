@@ -12,8 +12,10 @@ blocks, the match and emit kernels exactly (every length, lag, size and
 byte), the probe kernels exactly; and the engines against the plaintext,
 at every pipeline depth, through pinned staging buffers. The traced
 instantiations of the decode, match and emit kernels are held to the plain
-ones byte for byte, and the decode's counters to the NumPy mirror
-(``tests/decode_window_mirror.py``, which imports no JAX either).
+ones byte for byte, the decode's counters to the NumPy mirror
+(``tests/decode_window_mirror.py``, which imports no JAX either), and the
+sweep's traced instantiation to its plain one and its counters to the
+walk's NumPy mirror (``utils/sweep_table.py``).
 """
 
 from __future__ import annotations
@@ -373,6 +375,47 @@ def test_cuda_engine_sweep_round_trip(cuda_device, mode):
     assert bytes(stream) == bytes(plain)
     assert bytes(runtime.decompress(bytes(stream), TorchCodecConfig(engine="cuda"))) == data
     assert oracle.decompress(bytes(stream)) == data
+
+
+# The cell's 8 KB granular config, sampled and fine ones, and 16 KB (one CTA an SM).
+@pytest.mark.parametrize("block_size, knobs", [SWEEP[0], SWEEP[1], SWEEP[3], SWEEP[5]],
+                         ids=["8192-w2048-granular", "8192-w2048-sampled", "16384-granular", "384-fine"])
+def test_cuda_traced_sweep_equals_the_plain_one(cuda_device, block_size, knobs):
+    # The sweep kernel's traced instantiation, launched with a zeroed record
+    # of its own (the entry takes one inside a profiler session; the
+    # benchmark's traced runs read it there): the same lengths and lags as
+    # the plain kernel and the plain PyTorch sweep, one CTA a block, its
+    # phases adding to its CTA-cycles, and its counters equal to the NumPy
+    # mirror's counts of the walk on the same blocks.
+    from pim_compression_tpu_torch.utils import sweep_table
+
+    knobs = hopper_sweep.sweep_knobs(block_size, **knobs)
+    hb, hl = streams.sweep_hard_blocks(block_size, knobs["window"], 9)
+    eb, el = streams.sweep_edge_blocks(block_size, knobs["window"], 10)
+    text = np.frombuffer(streams.text_payload(4 * block_size, 11), np.uint8).reshape(4, block_size)
+    host = np.concatenate([text, eb, hb])
+    host_lens = np.concatenate([np.array([block_size] * 3 + [block_size - 77], np.int32), el, hl])
+    host[np.arange(block_size)[None, :] >= host_lens[:, None]] = 0
+    blocks, lens = torch.from_numpy(host).to(cuda_device), torch.from_numpy(host_lens).to(cuda_device)
+    plain = hopper_sweep.sweep_match(blocks, lens, **knobs)
+    record = torch.zeros((1, profiling.RECORD_WORDS), dtype=torch.int64, device=cuda_device)
+    traced = hopper_sweep._outputs(blocks)
+    hopper_sweep._launch(blocks, lens, *traced, knobs, record.data_ptr())
+    torch.cuda.synchronize()
+    want = hopper_sweep.sweep_match_torch(blocks, lens, **knobs)
+    for a, b, c in zip(plain, traced, want):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    k = profiling.reduce_records(record.cpu().numpy(), ["sweep"])["sweep"]
+    assert k.launches == 1 and k.walks == len(host) and 0 < k.walk_balance <= 1
+    c = k.counters
+    assert sum(c[p] for p in profiling.SWEEP_PHASES) == c["total"] and all(c[p] > 0 for p in profiling.SWEEP_PHASES)
+    stats = collections.Counter()
+    sweep_table.sweep_table(host, host_lens, knobs["window"], knobs["coarse_window"], knobs["granular"], stats=stats)
+    assert c["positions"] == stats["walks"] == int(np.maximum(host_lens - 3, 0).sum())  # 4 bytes left
+    assert (c["lane_entries"], c["handed"], c["round_entries"]) == (
+        stats["lane_steps"], stats["handed_off"], sweep_table.LANES * stats["rounds"])
+    assert c["coarse_entries"] == stats["past_window"] and (c["coarse_entries"] > 0) == bool(knobs["coarse_window"])
+    assert c["handed"] > 0 and c["lane_entries"] >= c["positions"]  # every walk reads its first entry
 
 
 def test_cuda_sweep_residency(cuda_device):

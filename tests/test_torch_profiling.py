@@ -3,7 +3,7 @@
 The traced kernels run only on the card (``tests/test_torch_cuda.py``).
 Here: the reduction of hand-made records, the clock's calibration
 arithmetic, the switch in each entry (a profiler session, ``KERNEL_SPANS``),
-the session's records and their capacity, the trace export, the five
+the session's records and their capacity, the trace export, the seven
 per-layer readers of ``hopper_bench/metrics/`` on a planted summary and on
 none, and their manifest entries.
 """
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from hopper_bench.core import cells, trace
-from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match
+from pim_compression_tpu_torch.ops import hopper_decode, hopper_encode, hopper_match, hopper_sweep
 from pim_compression_tpu_torch.runtime import profiling
 
 # One torch thread per test process: the xdist workers share the machine's cores.
@@ -27,6 +27,7 @@ torch.set_num_threads(1)
 W = profiling.RECORD_WORDS
 NEW_METRICS = ("decode_walk_balance", "decode_general_share", "decode_row_copy_share", "emit_walk_balance",
                "match_sort_ms")
+SWEEP_METRICS = ("sweep_walk_ms", "sweep_entries_per_pos")
 
 
 def _record(start, end, span, count, *counters):
@@ -45,6 +46,13 @@ RECORDS = np.stack([
     _record(7000, 7100, 100, 1),
 ])
 KINDS = ["decode", "decode", "match", "emit"]
+# Two sweep launches: CTA-cycles in stage, sort, ranks, lanes, rounds and all,
+# then positions walked, lane entries, positions handed off, round entries
+# (32 a round) and entries past the window.
+SWEEP_RECORDS = np.stack([
+    _record(9000, 9800, 1500, 2, 10, 20, 5, 40, 25, 100, 60, 300, 3, 96, 12),
+    _record(11000, 11400, 700, 2, 10, 20, 5, 50, 15, 100, 40, 200, 0, 0, 0),
+])
 
 
 def test_reduction_of_hand_made_records():
@@ -62,6 +70,19 @@ def test_reduction_of_hand_made_records():
     assert e.counters == {} and e.walk_balance == pytest.approx(1.0)
     assert d.spans is None and d.uncertainty_ns is None
     np.testing.assert_array_equal(profiling.launch_spans(RECORDS)[:, 0], [1000, 3000, 5000, 7000])
+
+
+def test_reduction_of_a_sweep_record():
+    k = profiling.reduce_records(SWEEP_RECORDS, ["sweep", "sweep"])["sweep"]
+    assert (k.launches, k.walks, k.span_ns, k.window_ns) == (2, 4, 2200, 2 * 800 + 2 * 400)
+    assert k.counters == {"stage": 20, "sort": 40, "ranks": 10, "lanes": 90, "rounds": 40, "total": 200,
+                          "positions": 100, "lane_entries": 500, "handed": 3, "round_entries": 96,
+                          "coarse_entries": 12}
+    assert sum(k.counters[p] for p in profiling.SWEEP_PHASES) == k.counters["total"]
+    assert k.share("lanes", "total") == pytest.approx(0.45) and k.share("rounds", "total") == pytest.approx(0.2)
+    args = profiling.launch_args("sweep", SWEEP_RECORDS[0])
+    assert args["ctas"] == 2 and args["lanes_%"] == pytest.approx(40.0) and args["handed"] == 3
+    assert "sort_%" in args and "lags_%" not in args  # the sweep's own phases
 
 
 def test_reduction_of_nothing_reads_none():
@@ -102,14 +123,14 @@ def fresh(monkeypatch):
     monkeypatch.setattr(profiling, "_session", None)
     monkeypatch.setattr(profiling, "KERNEL_SPANS", None)
     launched = []
-    for module in (hopper_decode, hopper_match, hopper_encode):
+    for module in (hopper_decode, hopper_match, hopper_sweep, hopper_encode):
         monkeypatch.setattr(module, "_launch", lambda *args: launched.append(args[-1]))
     return launched
 
 
 def _entries(on_card: bool, monkeypatch):
     """Call each entry once on small CPU tensors, as if they were on the card where ``on_card``."""
-    for module in (hopper_decode, hopper_match, hopper_encode):
+    for module in (hopper_decode, hopper_match, hopper_sweep, hopper_encode):
         if on_card:
             monkeypatch.setattr(module, "_on_card", lambda *args: True)
     blocks = torch.zeros((2, 256), dtype=torch.uint8)
@@ -117,33 +138,34 @@ def _entries(on_card: bool, monkeypatch):
     hopper_decode.decode_blocks(blocks, torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
                                 block_size=256)
     hopper_match.match_blocks(blocks, lens, rungs=(4,), max_lag=0)
+    hopper_sweep.sweep_match(blocks, lens, window=64)
     hopper_encode.emit_blocks(blocks, lens, torch.zeros((2, 256), dtype=torch.uint8),
                               torch.zeros((2, 256), dtype=torch.int16), 512)
 
 
 def _span_names(prof) -> list:
-    return sorted({e.name for e in prof.events() if re.match(r"^(decode|match|emit)_blocks\.", e.name)})
+    return sorted({e.name for e in prof.events() if re.match(r"^((decode|match|emit)_blocks|sweep_match)\.", e.name)})
 
 
 def test_off_without_a_profiler(fresh, monkeypatch):
     monkeypatch.setattr(profiling, "launch_record", lambda *a: pytest.fail("a record was taken"))
     monkeypatch.setattr(torch.profiler, "record_function", lambda *a: pytest.fail("a span was opened"))
     _entries(True, monkeypatch)
-    assert fresh == [None, None, None]  # the plain kernels
+    assert fresh == [None, None, None, None]  # the plain kernels
     assert profiling._session is None and profiling.kernel_summary() is None
 
 
 def test_on_inside_a_profiler(fresh, monkeypatch):
     with torch.profiler.profile() as prof:
         _entries(True, monkeypatch)
-    spans = [f"{e}_blocks.{p}" for e in ("decode", "emit", "match") for p in ("alloc", "check", "launch")]
-    assert _span_names(prof) == spans
-    assert all(isinstance(t, int) and t for t in fresh) and len(set(fresh)) == 3
-    assert fresh[1] - fresh[0] == fresh[2] - fresh[1] == 8 * W  # one record after another
+    entries = ("decode_blocks", "emit_blocks", "match_blocks", "sweep_match")
+    assert _span_names(prof) == [f"{e}.{p}" for e in entries for p in ("alloc", "check", "launch")]
+    assert all(isinstance(t, int) and t for t in fresh) and len(set(fresh)) == 4
+    assert fresh[1] - fresh[0] == fresh[2] - fresh[1] == fresh[3] - fresh[2] == 8 * W  # one record after another
     recs = profiling._session.devices[torch.device("cpu")]
-    assert recs.kinds == ["decode", "match", "emit"] and recs.buffer.shape == (profiling.CAPACITY, W)
+    assert recs.kinds == ["decode", "match", "sweep", "emit"] and recs.buffer.shape == (profiling.CAPACITY, W)
     summary = profiling.kernel_summary()
-    assert set(summary) == {"decode", "match", "emit"} and summary["decode"].walks == 0
+    assert set(summary) == {"decode", "match", "sweep", "emit"} and summary["decode"].walks == 0
     assert summary["decode"].walk_balance is None  # the stand-in launches wrote nothing
 
 
@@ -152,14 +174,14 @@ def test_off_with_kernel_spans_false(fresh, monkeypatch):
     monkeypatch.setattr(profiling, "launch_record", lambda *a: pytest.fail("a record was taken"))
     with torch.profiler.profile() as prof:
         _entries(True, monkeypatch)
-    assert _span_names(prof) == [] and fresh == [None, None, None]
+    assert _span_names(prof) == [] and fresh == [None, None, None, None]
 
 
 def test_cpu_tensors_take_no_record_inside_a_profiler(fresh, monkeypatch):
     monkeypatch.setattr(profiling, "launch_record", lambda *a: pytest.fail("a record was taken"))
     with torch.profiler.profile() as prof:
         _entries(False, monkeypatch)
-    assert _span_names(prof) == ["decode_blocks.check", "emit_blocks.check", "match_blocks.check"]
+    assert _span_names(prof) == ["decode_blocks.check", "emit_blocks.check", "match_blocks.check", "sweep_match.check"]
     assert fresh == [] and profiling.kernel_summary() is None
 
 
@@ -234,6 +256,11 @@ def test_trace_export_adds_a_track(fresh, monkeypatch, tmp_path):
 # -- the readers --------------------------------------------------------
 
 DECOMPRESS, COMPRESS = "bs32k_sorted.device_decompress", "bs32k_sorted.device_compress"
+SWEEP = "bs8k_sweep.device_compress"
+
+
+def _cell_of(metric: str) -> str:
+    return DECOMPRESS if metric.startswith("decode") else SWEEP if metric.startswith("sweep") else COMPRESS
 
 
 def _read(metric: str, cell: str, monkeypatch, summary, calls: int = 4000, ops=None):
@@ -249,6 +276,8 @@ def _read(metric: str, cell: str, monkeypatch, summary, calls: int = 4000, ops=N
 
 MATCH_OPS = [["void (anonymous namespace)::match_blocks_kernel<true>(unsigned char const*, ...)", 8.0],
              ["void (anonymous namespace)::emit_blocks_kernel<true>(unsigned char const*, ...)", 2.0]]
+SWEEP_OPS = [["void (anonymous namespace)::sweep_blocks_kernel<2, true>(unsigned char const*, ...)", 6.0],
+             ["void (anonymous namespace)::emit_blocks_kernel<true>(unsigned char const*, ...)", 2.0]]
 
 
 def test_readers_on_a_planted_summary(monkeypatch):
@@ -259,18 +288,32 @@ def test_readers_on_a_planted_summary(monkeypatch):
     assert _read("emit_walk_balance", COMPRESS, monkeypatch, s) == pytest.approx(100.0)
     # 8 s of match over 4000 calls is 2 ms a call; 20 of its 150 CTA-cycles sort.
     assert _read("match_sort_ms", COMPRESS, monkeypatch, s, ops=MATCH_OPS) == pytest.approx(2.0 * 20 / 150)
+    # 6 s of sweep over 4000 calls is 1.5 ms a call; 130 of its 200 CTA-cycles walk.
+    sw = profiling.reduce_records(np.concatenate([RECORDS, SWEEP_RECORDS]), KINDS + ["sweep", "sweep"])
+    assert _read("sweep_walk_ms", SWEEP, monkeypatch, sw, ops=SWEEP_OPS) == pytest.approx(1.5 * 130 / 200)
+    assert _read("sweep_entries_per_pos", SWEEP, monkeypatch, sw) == pytest.approx((500 + 96) / 100)
+    assert _read("emit_walk_balance", SWEEP, monkeypatch, sw) == pytest.approx(100.0)
 
 
-@pytest.mark.parametrize("metric", NEW_METRICS)
+@pytest.mark.parametrize("metric", NEW_METRICS + SWEEP_METRICS)
 def test_readers_read_none_where_nothing_was_recorded(metric, monkeypatch):
-    cell = DECOMPRESS if metric.startswith("decode") else COMPRESS
-    empty = profiling.reduce_records(np.zeros((3, W), np.int64), ["decode", "match", "emit"])
+    cell = _cell_of(metric)
+    empty = profiling.reduce_records(np.zeros((4, W), np.int64), ["decode", "match", "sweep", "emit"])
     for summary in (None, {}, empty):
         assert _read(metric, cell, monkeypatch, summary, ops=MATCH_OPS) is None
     # A summary of the other direction's kernels reads nothing either.
     other = profiling.reduce_records(RECORDS[[0, 1]] if cell == COMPRESS else RECORDS[[2, 3]],
                                      ["decode"] * 2 if cell == COMPRESS else ["match", "emit"])
     assert _read(metric, cell, monkeypatch, other, ops=MATCH_OPS) is None
+    if cell == SWEEP:  # a program whose traced encode ran no sweep kernel (the sorted matcher's)
+        assert _read(metric, cell, monkeypatch, profiling.reduce_records(RECORDS, KINDS), ops=MATCH_OPS) is None
+
+
+def test_sweep_walk_ms_needs_the_trace(monkeypatch):
+    sw = profiling.reduce_records(SWEEP_RECORDS, ["sweep", "sweep"])
+    assert _read("sweep_walk_ms", SWEEP, monkeypatch, sw) is None  # no trace
+    assert _read("sweep_walk_ms", SWEEP, monkeypatch, sw, ops=SWEEP_OPS[1:]) is None  # no sweep kernel in it
+    assert _read("sweep_walk_ms", SWEEP, monkeypatch, sw, calls=0, ops=SWEEP_OPS) is None
 
 
 def test_match_sort_ms_needs_the_trace(monkeypatch):
@@ -283,9 +326,8 @@ def test_match_sort_ms_needs_the_trace(monkeypatch):
 def test_readers_of_a_program_without_kernel_spans(monkeypatch):
     # A program without kernel spans has no kernel_summary: the readers read nothing.
     monkeypatch.delattr(profiling, "kernel_summary")
-    for metric in NEW_METRICS:
-        cell = DECOMPRESS if metric.startswith("decode") else COMPRESS
-        c = cells.load_cell(cell)
+    for metric in NEW_METRICS + SWEEP_METRICS:
+        c = cells.load_cell(_cell_of(metric))
         record = cells.load_driver(c).Record(entry=c.traffic["entry"], calls=1, window_s=1.0, enqueue_s=[],
                                              function_bytes=0)
         assert cells.load_reader(c, metric)(record) is None
@@ -300,23 +342,29 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 def test_manifest_entries_of_the_kernel_metrics():
     spec = cells.load_json(cells.MANIFEST)
     per_layer = spec["per_layer"]
-    assert [m["name"] for m in per_layer[-len(NEW_METRICS):]] == list(NEW_METRICS)  # appended, in order
+    kernel_metrics = NEW_METRICS + SWEEP_METRICS
+    assert [m["name"] for m in per_layer[-len(kernel_metrics):]] == list(kernel_metrics)  # appended, in order
     e2e = {m["name"]: m for m in spec["end_to_end"]}
     cells_by_name = {w["name"] for w in spec["workloads"]}
     names = [m["name"] for m in spec["end_to_end"] + per_layer]
     assert len(names) == len(set(names))
-    for m in per_layer[-len(NEW_METRICS):]:
+    # The cells whose kernels each metric reads: the decode's, the match kernel's, the sweep's, the emit's.
+    decompress = {"bs32k_sorted.device_decompress", "bs64k_ladder.device_decompress"}
+    sorted_compress = {"bs32k_sorted.device_compress", "bs64k_ladder.device_compress"}
+    runs = {"decode": decompress, "match": sorted_compress, "sweep": {SWEEP}, "emit": sorted_compress | {SWEEP}}
+    units = {"match_sort_ms": "ms", "sweep_walk_ms": "ms", "sweep_entries_per_pos": "entries"}
+    for m in per_layer[-len(kernel_metrics):]:
         assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert m["source"] in ("program_span", "program_counter") and m["layer"] == "kernels"
         assert m["moves"] in e2e and set(m["workloads"]) <= cells_by_name
         assert set(m["workloads"]) <= set(e2e[m["moves"]]["workloads"])  # each cell reports what it moves
         direction = "decompress" if m["name"].startswith("decode") else "compress"
-        assert m["moves"] == f"{direction}_gbps" and len(m["workloads"]) == 2
-        assert all(w.endswith(f".device_{direction}") for w in m["workloads"])
+        assert m["moves"] == f"{direction}_gbps"
+        assert set(m["workloads"]) == runs[m["name"].split("_")[0]]
         for w in m["workloads"]:
             cell = cells.load_cell(w)
             assert m["name"] in [x["name"] for x in cell.per_layer]
             assert callable(cells.load_reader(cell, m["name"]))
-        assert m["unit"] == ("ms" if m["name"] == "match_sort_ms" else "%")
+        assert m["unit"] == units.get(m["name"], "%")
     assert len(json.dumps(spec)) < 64 * 1024
