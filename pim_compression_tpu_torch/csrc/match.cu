@@ -85,11 +85,21 @@
 // 64 KB blocks. 65536 sort words are 256 KB, past the 232448 bytes a CTA may
 // use. A stride-1 rung with no window sorts each 32 KB half of the positions in
 // turn in the one 128 KB buffer, and copies the sorted first half to a
-// device-memory scratch. A position's nearest previous equal key is its
+// device-memory scratch fh. A position's nearest previous equal key is its
 // predecessor in its own half's sorted run; a second-half position that is first
-// of its key in its half takes the last first-half position with that key, found
-// by binary search of the scratch. A strided rung has at most 32768 rows, and a
-// window's groups divide the 32768-row chunks, so neither needs the search.
+// of its key in its half takes the last first-half position with that key. Its
+// keys are 16 bits (pos_bits 16), so a second scratch, last_idx (uint16[65536]
+// a block), has a slot for every key: the first half's sweep writes into the
+// key's slot the sorted index of each key's last word (one writer a present
+// key, no atomics), and the second half reads w = fh[last_idx[key] & 0x7FFF]
+// and takes w's row if w's key is the key: two dependent loads where an upper
+// bound on the sorted keys took about 16. The table is never cleared. A slot
+// of a key absent from the first half may hold anything (a stale index of an
+// earlier rung or launch, or garbage), but fh is rewritten whole in every
+// split rung, so such a slot points at a word of another key and is rejected;
+// a present key's slot was written in this rung. A strided rung has at most
+// 32768 rows, and a window's groups divide the 32768-row chunks, so neither
+// needs the lookup.
 //
 // Selection, per position after the last rung, in one of three modes:
 // - rung pick: the longest rung with a candidate, capped at max_lag, wins;
@@ -131,19 +141,25 @@
 // The rest is the word build
 // (hashing: byte loads of the staged block; kPasses = 0 leaves it alone), the
 // lag planes (2 bytes per position and rung, L2-resident), the 64 KB halves'
-// binary searches in device memory and the extensions. Counting the next
-// pass's digits during a scatter and several small blocks per CTA are left
-// for later.
+// key-indexed lookups (two dependent device-memory loads where a second-half
+// position is first of its key) and the extensions. Counting the next pass's
+// digits during a scatter and several small blocks per CTA are left for
+// later.
 //
 // Traced (kTrace, trace.cuh): thread 0 reads clock64() after the barriers that
 // end each phase and adds the cycles since its last reading to the phase's
 // counter of the launch's record: c[0] stage (stage_row, every chunk's and
 // the selection's), c[1] sort (the word build and the radix passes), c[2] lags
-// (the predecessor sweep with the 64 KB halves' search, and the plane write),
+// (the predecessor sweep with the 64 KB halves' lookup, and the plane write),
 // c[3] select (selection and extensions), c[4] fold (the neighbor fold and
 // the write-out, to thread 0's own end: no barrier follows it), c[5] the
 // CTA's cycles from its start. Every boundary is an existing barrier, so no
-// phases are merged. Each CTA also folds its %globaltimer span in.
+// phases are merged. In a split rung's second half each warp's lane 0 also
+// reads clock() around the lookup of every warp-step in which some lane
+// looks up, after the warp's lanes meet at a ballot on each side, and the
+// warp adds those cycles to c[6], its lookups to c[7] and those that found a
+// first-half word to c[8], once a chunk. Each CTA also folds its
+// %globaltimer span in.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -314,20 +330,12 @@ __device__ void radix_sort(uint32_t* words, uint32_t* parked, uint32_t* hist, ui
   }
 }
 
-// The row of the last word with key `key` in the sorted words w[0, n), or -1:
-// an upper bound on the key field.
-__device__ int last_with_key(const uint32_t* w, int n, uint32_t key, int pos_bits) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((w[mid] >> pos_bits) <= key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  if (lo == 0 || (w[lo - 1] >> pos_bits) != key) return -1;
-  return static_cast<int>(w[lo - 1] & ((1u << pos_bits) - 1));
+// The row of the last word with the 16-bit key `key` in a split rung's sorted
+// first half fh, or -1: the index in the key's slot of last_idx, held to the
+// word it points at (a slot of a key absent from the first half is stale).
+__device__ __forceinline__ int last_with_key(const uint32_t* fh, const uint16_t* last_idx, uint32_t key) {
+  const uint32_t w = fh[last_idx[key] & (kHalf - 1)];
+  return (w >> 16) == key ? static_cast<int>(w & 0xFFFFu) : -1;
 }
 
 // The 4 bytes at s[q, q + 4), little-endian, from two aligned 32-bit loads.
@@ -354,6 +362,53 @@ __device__ __forceinline__ int extend(const uint8_t* s, int p, int lag, int cap)
 }
 
 enum Phase { kStage = 0, kSort = 1, kLags = 2, kSelect = 3, kFold = 4, kTotal = 5 };
+enum LookupCounter { kLookupCycles = 6, kLookups = 7, kHits = 8 };
+
+// The lag sweep of a split rung's second half (stride 1, 16-bit keys, one
+// window group): a row's sorted predecessor with its key, or, for a row first
+// of its key in its half, the first half's last word with the key. Traced:
+// each warp's lane 0 reads clock() around the lookup of every warp-step in
+// which some lane looks up, after a ballot on each side, and the warp adds
+// those cycles, its lookups and its hits to c[6], c[7] and c[8] once. Its own
+// loop, apart from the other sweeps': there the traced kernel's code stays as
+// the plain one's (timing inside the shared loop slowed the whole traced
+// kernel by 5 %, its sort too, on an H100).
+template <bool kTrace>
+__device__ __forceinline__ void second_half_lags(const uint32_t* s_words, uint16_t* s_near, const uint32_t* fh,
+                                                 const uint16_t* table, int real, int r0, int tid, int nt,
+                                                 pim::TraceRecord* trace) {
+  [[maybe_unused]] const int lane = tid & 31;
+  [[maybe_unused]] uint32_t cycles = 0, counts = 0;  // lane 0's: the lookup's cycles; lookups | hits << 16
+  for (int i = tid; i < real; i += nt) {
+    const uint32_t w = s_words[i];
+    const uint32_t key = w >> 16;
+    const int row = static_cast<int>(w & 0xFFFFu);
+    const bool look = i == 0 || (s_words[i - 1] >> 16) != key;
+    int prev = look ? -1 : static_cast<int>(s_words[i - 1] & 0xFFFFu);
+    if constexpr (kTrace) {
+      const int n = real - (i - lane);  // the lanes of this step are a prefix of the warp
+      const uint32_t mask = n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1;
+      const uint32_t lookers = __ballot_sync(mask, look);
+      const uint32_t t0 = clock();
+      if (look) prev = last_with_key(fh, table, key);
+      const uint32_t hits = __ballot_sync(mask, prev >= 0) & lookers;  // after every lane's loads
+      if (lane == 0 && lookers) {
+        cycles += clock() - t0;
+        counts += __popc(lookers) | (__popc(hits) << 16);  // at most 1024 each: 32 steps a warp
+      }
+    } else if (look) {
+      prev = last_with_key(fh, table, key);
+    }
+    s_near[row - r0] = static_cast<uint16_t>(prev >= 0 ? row - prev : 0);
+  }
+  if constexpr (kTrace) {
+    if (counts) {
+      atomicAdd(&trace->c[kLookupCycles], static_cast<unsigned long long>(cycles));
+      atomicAdd(&trace->c[kLookups], static_cast<unsigned long long>(counts & 0xFFFFu));
+      atomicAdd(&trace->c[kHits], static_cast<unsigned long long>(counts >> 16));
+    }
+  }
+}
 
 // Traced: thread 0 adds the cycles since its last reading to `phase`.
 template <bool kTrace>
@@ -371,7 +426,8 @@ template <bool kTrace>
 __global__ void __launch_bounds__(kMaxThreads)
 match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ lens,
                     uint8_t* __restrict__ mlen, uint16_t* __restrict__ mlag,
-                    uint16_t* __restrict__ near, uint32_t* __restrict__ first_half, int bs,
+                    uint16_t* __restrict__ near, uint32_t* __restrict__ first_half,
+                    uint16_t* __restrict__ last_idx, int bs,
                     int rung_mask, int ext_cap, int neighbor, int max_lag, int prev_k,
                     int sel_cap, int mode, int stride_code, int window, pim::TraceRecord* trace) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -437,18 +493,25 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
       radix_sort(s_words, s_parked, s_hist, s_tot, steps, pos_bits, tid, nt);
       phase_end<kTrace>(trace, last, kSort, tid);
       // Sorted slots [0, real) hold the real words; equal keys sit in row order.
-      for (int i = tid; i < real; i += nt) {
-        const uint32_t w = s_words[i];
-        const int row = static_cast<int>(w & pos_mask);
-        int prev = -1;
-        if (i > 0 && (s_words[i - 1] >> pos_bits) == (w >> pos_bits)) {
-          prev = static_cast<int>(s_words[i - 1] & pos_mask);
-          if (prev / group != row / group) prev = -1;  // before the row's window group
-        } else if (split && r0 > 0) {
-          prev = last_with_key(fh, kHalf, w >> pos_bits, pos_bits);
+      uint16_t* table = last_idx + static_cast<size_t>(b) * (1 << 16);  // used by a split sort
+      if (split && r0 > 0) {
+        second_half_lags<kTrace>(s_words, s_near, fh, table, real, r0, tid, nt, trace);
+      } else {
+        for (int i = tid; i < real; i += nt) {
+          const uint32_t w = s_words[i];
+          const uint32_t key = w >> pos_bits;
+          const int row = static_cast<int>(w & pos_mask);
+          int prev = -1;
+          if (i > 0 && (s_words[i - 1] >> pos_bits) == key) {
+            prev = static_cast<int>(s_words[i - 1] & pos_mask);
+            if (prev / group != row / group) prev = -1;  // before the row's window group
+          }
+          s_near[row - r0] = static_cast<uint16_t>(prev >= 0 ? (row - prev) * stride : 0);
+          if (split) {  // the first half: its sorted words, and each key's last index
+            fh[i] = w;
+            if (i == real - 1 || (s_words[i + 1] >> pos_bits) != key) table[key] = static_cast<uint16_t>(i);
+          }
         }
-        s_near[row - r0] = static_cast<uint16_t>(prev >= 0 ? (row - prev) * stride : 0);
-        if (split && r0 == 0) fh[i] = w;
       }
       __syncthreads();
       const int p0 = r0 * stride, p1 = min(bs, (r0 + real) * stride);
@@ -552,8 +615,9 @@ match_blocks_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restric
 
 template <bool kTrace>
 cudaError_t launch(const void* blocks, const void* lens, void* mlen, void* mlag, void* near, void* first_half,
-                   int num_blocks, int block_size, int rung_mask, int ext_cap, int neighbor, int max_lag,
-                   int prev_k, int sel_cap, int mode, int stride_code, int window, void* stream, void* trace) {
+                   void* last_idx, int num_blocks, int block_size, int rung_mask, int ext_cap, int neighbor,
+                   int max_lag, int prev_k, int sel_cap, int mode, int stride_code, int window, void* stream,
+                   void* trace) {
   const size_t smem = shared_bytes(block_size);
   const int threads = block_threads(block_size);
   const cudaError_t st = cudaFuncSetAttribute(match_blocks_kernel<kTrace>,
@@ -562,8 +626,8 @@ cudaError_t launch(const void* blocks, const void* lens, void* mlen, void* mlag,
   match_blocks_kernel<kTrace><<<num_blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(lens),
       static_cast<uint8_t*>(mlen), static_cast<uint16_t*>(mlag), static_cast<uint16_t*>(near),
-      static_cast<uint32_t*>(first_half), block_size, rung_mask, ext_cap, neighbor, max_lag,
-      prev_k, sel_cap, mode, stride_code, window, static_cast<pim::TraceRecord*>(trace));
+      static_cast<uint32_t*>(first_half), static_cast<uint16_t*>(last_idx), block_size, rung_mask, ext_cap,
+      neighbor, max_lag, prev_k, sel_cap, mode, stride_code, window, static_cast<pim::TraceRecord*>(trace));
   return cudaGetLastError();
 }
 
@@ -572,9 +636,10 @@ cudaError_t launch(const void* blocks, const void* lens, void* mlen, void* mlag,
 // Match num_blocks blocks on `stream`. blocks is uint8[num_blocks, block_size],
 // lens int32[num_blocks]; mlen uint8 and mlag uint16 (an int16 tensor's bits)
 // are [num_blocks, block_size]. near is uint16[num_blocks, n_rungs, block_size]
-// scratch; first_half is uint32[num_blocks, 32768] scratch when some rung sorts
-// more than 32768 rows in one group (stride 1, no window, block_size > 32768;
-// else unused, may be null). rung_mask bit i selects rung 4 << i; stride_code
+// scratch; first_half is uint32[num_blocks, 32768] and last_idx
+// uint16[num_blocks, 65536] scratch when some rung sorts more than 32768 rows
+// in one group (stride 1, no window, block_size > 32768; else unused, may be
+// null); neither needs clearing. rung_mask bit i selects rung 4 << i; stride_code
 // bits 2i..2i+1 hold log2 of its stride (the 4-byte rung's must be 0); window
 // is the sort window in bytes (0 = none; else a power of two >= 512 that
 // divides the block's power-of-two sort size). max_lag 0 means no cap. mode 0
@@ -584,7 +649,7 @@ cudaError_t launch(const void* blocks, const void* lens, void* mlen, void* mlag,
 // kernel, or null for the plain one. Returns cudaGetLastError() after the
 // launch (0 on success). Does not synchronise.
 extern "C" int pim_match_blocks(const void* blocks, const void* lens, void* mlen, void* mlag,
-                                void* near, void* first_half, int num_blocks, int block_size,
+                                void* near, void* first_half, void* last_idx, int num_blocks, int block_size,
                                 int rung_mask, int ext_cap, int neighbor, int max_lag,
                                 int prev_k, int sel_cap, int mode, int stride_code, int window,
                                 int device, void* stream, void* trace) {
@@ -605,13 +670,13 @@ extern "C" int pim_match_blocks(const void* blocks, const void* lens, void* mlen
       split = split || group_rows(block_size, rung_shift(stride_code, bit), window) > kHalf;
     }
   }
-  if (split && first_half == nullptr) return cudaErrorInvalidValue;
+  if (split && (first_half == nullptr || last_idx == nullptr)) return cudaErrorInvalidValue;
   if (shared_bytes(block_size) > kMaxSharedBytes) return cudaErrorInvalidValue;
   const cudaError_t st = cudaSetDevice(device);
   if (st != cudaSuccess) return st;
   return static_cast<int>(
-      trace ? launch<true>(blocks, lens, mlen, mlag, near, first_half, num_blocks, block_size, rung_mask, ext_cap,
-                           neighbor, max_lag, prev_k, sel_cap, mode, stride_code, window, stream, trace)
-            : launch<false>(blocks, lens, mlen, mlag, near, first_half, num_blocks, block_size, rung_mask, ext_cap,
-                            neighbor, max_lag, prev_k, sel_cap, mode, stride_code, window, stream, trace));
+      trace ? launch<true>(blocks, lens, mlen, mlag, near, first_half, last_idx, num_blocks, block_size, rung_mask,
+                           ext_cap, neighbor, max_lag, prev_k, sel_cap, mode, stride_code, window, stream, trace)
+            : launch<false>(blocks, lens, mlen, mlag, near, first_half, last_idx, num_blocks, block_size, rung_mask,
+                            ext_cap, neighbor, max_lag, prev_k, sel_cap, mode, stride_code, window, stream, trace));
 }

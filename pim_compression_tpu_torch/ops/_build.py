@@ -106,7 +106,7 @@ def load() -> ctypes.CDLL:
         lib.pim_decode_walks_per_sm.argtypes = [i32]  # device
         lib.pim_match_blocks.restype = i32
         lib.pim_match_blocks.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, near, first_half
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # blocks, lens, mlen, mlag, near, first_half, last_idx
             i32, i32, i32, i32, i32, i32,  # num_blocks, block_size, rung_mask, ext_cap, neighbor, max_lag
             i32, i32, i32, i32, i32,  # prev_k, sel_cap, mode, stride_code, window
             i32, ptr, ptr,  # device, stream, trace record (null: the plain kernel)

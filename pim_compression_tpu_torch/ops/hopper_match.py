@@ -303,7 +303,8 @@ def match_blocks(
     ``match_blocks_torch``. The launch goes on the current stream and does
     not synchronise; its device-memory scratch (a uint16 lag plane per rung
     and block, and where a rung sorts more than 32768 rows at once a sorted
-    copy of each block's first half) is allocated here. While a
+    copy of each block's first half and a table of each key's last index in
+    it) is allocated here. While a
     ``torch.profiler`` session records, the traced kernel runs and the
     checks, allocations and launch are host spans (``runtime/profiling.py``).
     """
@@ -352,27 +353,32 @@ def _on_card(blocks, lens, knobs: dict) -> bool:
 
 
 def _outputs(blocks, knobs: dict) -> tuple:
-    """(mlen, mlag, the lag planes, the sorted first halves or None); no
-    scratch for no blocks."""
+    """(mlen, mlag, the lag planes, the sorted first halves or None, the
+    tables of each 16-bit key's last index in them or None); no scratch for
+    no blocks. The tables are not cleared: the kernel checks every slot it
+    reads against the first half."""
     nb, bs = blocks.shape
     dev = blocks.device
     mlen = torch.empty((nb, bs), dtype=torch.uint8, device=dev)
     mlag = torch.empty((nb, bs), dtype=torch.int16, device=dev)
     if nb == 0:
-        return mlen, mlag, None, None
+        return mlen, mlag, None, None, None
     near = torch.empty((nb, len(knobs["rungs"]), bs), dtype=torch.int16, device=dev)
     # A stride-1 rung with no window sorts its 32 KB halves in turn above 32768.
     window = knobs["sort_window"]
     split = bs > HALF and 1 in knobs["strides"] and not (window and window < sort_size(bs))
-    first_half = torch.empty((nb, HALF), dtype=torch.int32, device=dev) if split else None
-    return mlen, mlag, near, first_half
+    if not split:
+        return mlen, mlag, near, None, None
+    first_half = torch.empty((nb, HALF), dtype=torch.int32, device=dev)
+    last_idx = torch.empty((nb, 1 << 16), dtype=torch.int16, device=dev)
+    return mlen, mlag, near, first_half, last_idx
 
 
 def _launch(blocks, lens, out: tuple, knobs: dict, trace) -> None:
     """Launch the kernel on the current stream; ``trace`` is a record's
     address for the traced kernel, or None for the plain one."""
     global LAUNCHES
-    mlen, mlag, near, first_half = out
+    mlen, mlag, near, first_half, last_idx = out
     nb, bs = blocks.shape
     dev = blocks.device
     bits = [r.bit_length() - 3 for r in knobs["rungs"]]  # rung 4 << bit
@@ -381,7 +387,7 @@ def _launch(blocks, lens, out: tuple, knobs: dict, trace) -> None:
     lib = _build.load()
     rc = lib.pim_match_blocks(
         blocks.data_ptr(), lens.data_ptr(), mlen.data_ptr(), mlag.data_ptr(),
-        near.data_ptr(), first_half.data_ptr() if first_half is not None else None,
+        near.data_ptr(), *(t.data_ptr() if t is not None else None for t in (first_half, last_idx)),
         nb, bs, rung_mask, knobs["ext_cap"], int(knobs["neighbor"]), knobs["max_lag"], knobs["prev_k"],
         knobs["sel_cap"], _mode(knobs["sel_all"], knobs["rung_pick"]), stride_code, knobs["sort_window"],
         dev.index if dev.index is not None else torch.cuda.current_device(),

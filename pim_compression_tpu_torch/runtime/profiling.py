@@ -99,14 +99,17 @@ PHASES_OF = {"match": MATCH_PHASES, "sweep": SWEEP_PHASES}  # kernels that recor
 # Each of the four kernels' counters, the record's words 4, 5, ... in order:
 # the decode's elements walked, those on the general path, bytes copied by
 # valid copy elements and those of them read from the row past the ring; the
-# match kernel's CTA-cycles in each phase and in all (csrc/match.cu); the
+# match kernel's CTA-cycles in each phase and in all, then, in the second
+# half of a rung that sorts its 32 KB halves in turn, the warps' cycles in the
+# key-indexed lookup, the lookups and those that found a first-half word
+# (csrc/match.cu); the
 # sweep kernel's CTA-cycles in each phase and in all, then the positions it
 # walked, the entries its lanes visited, the positions handed to a warp, the
 # entries the warps' rounds visited (32 a round) and the entries past the
 # window, of both (csrc/sweep.cu); none of the emit's.
 COUNTERS = {
     "decode": ("elements", "general", "copied", "from_row"),
-    "match": (*MATCH_PHASES, "total"),
+    "match": (*MATCH_PHASES, "total", "lookup", "lookups", "hits"),
     "sweep": (*SWEEP_PHASES, "total", "positions", "lane_entries", "handed", "round_entries", "coarse_entries"),
     "emit": (),
 }

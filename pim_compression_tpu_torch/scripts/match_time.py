@@ -1,6 +1,6 @@
 """Time the match kernel at the main paths' shapes and in each sort-mode config.
 
-    python3 -m pim_compression_tpu_torch.scripts.match_time [--device cuda:0]
+    python3 -m pim_compression_tpu_torch.scripts.match_time [--device cuda:0] [--parent DIR]
 
 Runs ``csrc/match.cu`` through ``ops.hopper_match.match_blocks`` on
 device-resident batches of the seeded payloads ``chip_smoke.py`` makes: one
@@ -9,16 +9,26 @@ zero-flag config as the runtime runs it there (the ``sel_all`` ladder),
 config (a) on a 1024-block batch, and configs (a)-(e) on 128 payload blocks
 and the 9 hand-built ones, as ``chip_smoke.py`` phases 6, 9 and 13 do. Each
 time is the mean device time of 10 back-to-back launches by CUDA events.
+The traced kernel then runs the two zero-flag cases (``traced_phases``).
 Writes ``build/probes/match_time.json`` and prints one JSON line.
 
 It runs as a file too, with another checkout's package first on
 ``PYTHONPATH`` (``PYTHONPATH=old python3 path/to/match_time.py``), so that
-two versions of the kernel are timed in one run on one card.
+two versions of the kernel are timed in one run on one card. ``--parent
+DIR`` does that in turns: DIR's script and this one, each in a process of
+its own with its own checkout on ``PYTHONPATH``, parent, this, this,
+parent; each parent case says whether its sums equal this build's. It
+writes ``build/probes/match_time_turns.json``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -88,7 +98,10 @@ def traced_phases(dev, todo) -> list[dict]:
     case: mean device ms of REPS launches, each with a zeroed record of its
     own, the share of the CTA-cycles in each phase (``profiling.MATCH_PHASES``)
     and the sort's ms as the benchmark's ``match_sort_ms`` reads it (the
-    traced ms x sort / all)."""
+    traced ms x sort / all); where a rung sorts its 32 KB halves in turn,
+    the lookup's ms as ``match_lookup_ms`` reads it (the traced ms x the
+    warps' lookup cycles / (32 warps x all)), the lookups per second-half
+    position of the split rungs and the share of lookups that hit."""
     out = []
     for name, bs, fields, blocks_np, lens_np in todo:
         if "zero-flag" not in name:
@@ -104,7 +117,13 @@ def traced_phases(dev, todo) -> list[dict]:
         cycles = recs[1:, 4:4 + len(profiling.COUNTERS["match"])].sum(0).tolist()
         phases = dict(zip(profiling.COUNTERS["match"], cycles))
         share = {k: phases[k] / phases["total"] for k in profiling.MATCH_PHASES}
-        out.append({"case": name, "traced_ms": ms, "share": share, "sort_ms": ms * share["sort"]})
+        rec = {"case": name, "traced_ms": ms, "share": share, "sort_ms": ms * share["sort"]}
+        if phases["lookups"]:  # stride-1 rungs with no window above 32768 split
+            positions = REPS * len(blocks_np) * knobs["strides"].count(1) * (bs - hopper_match.HALF)
+            rec.update(lookup_ms=ms * phases["lookup"] / (32 * phases["total"]),
+                       lookups_per_position=phases["lookups"] / positions,
+                       hit_share=phases["hits"] / phases["lookups"])
+        out.append(rec)
     return out
 
 
@@ -113,11 +132,43 @@ def run(device) -> list[dict]:
     todo = cases()
     common.warm(dev)
     records, _ = time_cases(dev, todo)
-    return [{"card": common.card(dev), "kernel_source": hopper_match.__file__}] + records
+    traced = traced_phases(dev, todo)
+    return [{"card": common.card(dev), "kernel_source": hopper_match.__file__}] + records + traced
+
+
+def in_turns(parent: str, device: str) -> list[dict]:
+    """This script and DIR's, each in a process of its own with its own
+    checkout first on ``PYTHONPATH``: parent, this, this, parent. Each
+    parent case says whether its length and lag sums equal this build's."""
+    here, parent = pathlib.Path(__file__).resolve().parents[2], pathlib.Path(parent).resolve()
+    out = []
+    for name, root in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, str(root / "pim_compression_tpu_torch" / "scripts" / "match_time.py"), "--device", device],
+            env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True, text=True, check=True)
+        out.append({"build": name, "records": json.loads(proc.stdout.splitlines()[-1])})
+    sums = [(r["len_sum"], r["lag_sum"]) for r in out[1]["records"] if "len_sum" in r]
+    for turn in out:
+        if turn["build"] == "parent":
+            timed = [r for r in turn["records"] if "len_sum" in r]
+            for r, want in zip(timed, sums):
+                r["equal"] = (r["len_sum"], r["lag_sum"]) == want
+    return out
 
 
 def main(argv=None) -> int:
-    rc = common.main("match_time", run, __doc__.splitlines()[0], argv)
+    parser = argparse.ArgumentParser(prog="python -m pim_compression_tpu_torch.scripts.match_time",
+                                     description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default="cuda:0", help="the CUDA device to measure (default cuda:0)")
+    parser.add_argument("--parent", help="another checkout whose match kernel is timed in turns with this one")
+    args = parser.parse_args(argv)
+    if args.parent:
+        turns = in_turns(args.parent, args.device)
+        common.OUT_DIR.mkdir(parents=True, exist_ok=True)
+        (common.OUT_DIR / "match_time_turns.json").write_text(json.dumps(turns, indent=2) + "\n")
+        print(json.dumps(turns))
+        return 0
+    rc = common.main("match_time", run, __doc__.splitlines()[0], ["--device", args.device])
     print(json.dumps(json.loads((common.OUT_DIR / "match_time.json").read_text())))
     return rc
 

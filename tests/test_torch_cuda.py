@@ -15,7 +15,10 @@ instantiations of the decode, match and emit kernels are held to the plain
 ones byte for byte, the decode's counters to the NumPy mirror
 (``tests/decode_window_mirror.py``, which imports no JAX either), and the
 sweep's traced instantiation to its plain one and its counters to the
-walk's NumPy mirror (``utils/sweep_table.py``).
+walk's NumPy mirror (``utils/sweep_table.py``). At 64 KB the match kernel's
+key table, never cleared, is held to the plain version across calls and its
+lookups and hits to the rung sort's NumPy mirror
+(``tests/match_radix_mirror.py``).
 """
 
 from __future__ import annotations
@@ -246,6 +249,52 @@ def test_cuda_encode_kernels_match_plain_versions(cuda_device, block_size, knobs
     assert torch.equal(mlen, want_len) and torch.equal(mlag, want_lag)
     want_comp, want_sizes = hopper_encode.emit_blocks_torch(blocks, lens, mlen, mlag, cap)
     assert torch.equal(sizes, want_sizes) and torch.equal(comp, want_comp)
+
+
+# The 64 KB default (the sel_all ladder) and config (e) without its window:
+# each sorts a stride-1 rung's 32 KB halves in turn.
+@pytest.mark.parametrize("fields", [{}, dict(rungs=(4, 32), rung_strides=(1, 2))],
+                         ids=["65536-default", "65536-e-no-window"])
+def test_cuda_split_lookup_table_is_never_cleared(cuda_device, fields):
+    # The C entry, three times on one first-half and one key-table scratch:
+    # the table filled from random bytes before the first call, the second
+    # call (traced) on other blocks, the third on the first blocks again, so
+    # that every call meets slots that an earlier rung, block or call left.
+    # Each output equals the plain version; the traced launch's lookups and
+    # hits equal the NumPy mirror's counts on the same blocks.
+    from match_radix_mirror import kernel_prev_lags, new_table, plain_hashes
+
+    bs = 65536
+    knobs = hopper_encode.encode_knobs(TorchCodecConfig(engine="cuda", block_size=bs, **fields))
+    text = np.frombuffer(streams.text_payload(8 * bs, 41), np.uint8).reshape(8, bs)
+    far = np.frombuffer(streams.far_repeat_block(bs, 6), np.uint8)[None]
+    hb, hl = streams.hand_plain_blocks(bs, 42)
+    host = np.concatenate([text, far, hb])
+    host_lens = np.concatenate([np.full(9, bs, np.int32), hl])
+    host[np.arange(bs)[None, :] >= host_lens[:, None]] = 0
+    sets = [(host[k::2], host_lens[k::2]) for k in (0, 1, 0)]
+    blocks, lens = (torch.from_numpy(x).to(cuda_device) for x in sets[0])
+    assert hopper_match._on_card(blocks, lens, knobs)  # fills in the checked rungs and strides
+    out = hopper_match._outputs(blocks, knobs)
+    first_half, table = out[3], out[4]
+    assert first_half is not None and table.shape == (len(blocks), 1 << 16)
+    table.copy_(torch.from_numpy(new_table("random", seed=43).astype(np.int16)).expand_as(table))
+    record = torch.zeros((1, profiling.RECORD_WORDS), dtype=torch.int64, device=cuda_device)
+    for k, (b, l) in enumerate(sets):
+        blocks, lens = torch.from_numpy(b).to(cuda_device), torch.from_numpy(l).to(cuda_device)
+        hopper_match._launch(blocks, lens, out, knobs, record.data_ptr() if k == 1 else None)
+        torch.cuda.synchronize()
+        want = hopper_match.match_blocks_torch(blocks, lens, **knobs)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1]), k
+    stats = collections.Counter()
+    b, _ = sets[1]
+    for rung, stride in zip(knobs["rungs"], knobs["strides"]):
+        h = plain_hashes(b, rung)
+        for i in range(len(b)):
+            kernel_prev_lags(h[i], bs, stride, knobs["sort_window"], new_table("random", seed=i), stats)
+    c = profiling.reduce_records(record.cpu().numpy(), ["match"])["match"].counters
+    assert (c["lookups"], c["hits"]) == (stats["lookups"], stats["hits"])
+    assert 0 < c["hits"] < c["lookups"] and c["lookup"] > 0
 
 
 def test_cuda_encode_wrappers_reject_bad_tensors(cuda_device):
@@ -492,6 +541,7 @@ def test_cuda_cli_profile_traces_the_kernels(cuda_device, tmp_path):
     spans = [e for e in json.loads(trace)["traceEvents"] if e.get("cat") == "kernel_span"]
     assert {e["name"] for e in spans} == {"match_blocks_kernel", "emit_blocks_kernel"}
     assert all(e["dur"] > 0 and 0 < e["args"].get("sort_%", 1) < 100 for e in spans)
+    assert all({"lookup", "lookups", "hits"} <= set(e["args"]) for e in spans if e["name"] == "match_blocks_kernel")
 
 
 # The rung pick at 32 KB, the sel_all ladder at 64 KB (the zero-flag config's rule).
@@ -541,7 +591,11 @@ def test_cuda_traced_kernels_equal_the_plain_ones(cuda_device, block_size, monke
     assert all(k.launches == 1 and k.dropped == 0 and 0 < k.walk_balance <= 1 for k in summary.values())
     assert (summary["match"].walks, summary["emit"].walks, summary["decode"].walks) == (nb, nb, len(dec))
     cycles = summary["match"].counters
-    assert sum(cycles[p] for p in profiling.MATCH_PHASES) == cycles["total"] and all(cycles.values())
+    assert sum(cycles[p] for p in profiling.MATCH_PHASES) == cycles["total"]
+    assert all(cycles[p] for p in (*profiling.MATCH_PHASES, "total"))
+    # Only the 64 KB ladder splits a rung into 32 KB halves and looks keys up.
+    assert (cycles["lookups"] > 0) == (cycles["lookup"] > 0) == (block_size > 32768)
+    assert cycles["hits"] <= cycles["lookups"]
 
     host = [t.cpu().numpy() for t in dec_args]
     ours, rest = collections.Counter(), collections.Counter()  # the encoded blocks, the hand-made ones

@@ -3,13 +3,14 @@
 The traced kernels run only on the card (``tests/test_torch_cuda.py``).
 Here: the reduction of hand-made records, the clock's calibration
 arithmetic, the switch in each entry (a profiler session, ``KERNEL_SPANS``),
-the session's records and their capacity, the trace export, the seven
+the session's records and their capacity, the trace export, the eight
 per-layer readers of ``hopper_bench/metrics/`` on a planted summary and on
 none, and their manifest entries.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 
@@ -28,6 +29,7 @@ W = profiling.RECORD_WORDS
 NEW_METRICS = ("decode_walk_balance", "decode_general_share", "decode_row_copy_share", "emit_walk_balance",
                "match_sort_ms")
 SWEEP_METRICS = ("sweep_walk_ms", "sweep_entries_per_pos")
+LOOKUP_METRICS = ("match_lookup_ms",)
 
 
 def _record(start, end, span, count, *counters):
@@ -42,7 +44,8 @@ def _record(start, end, span, count, *counters):
 RECORDS = np.stack([
     _record(1000, 1500, 800, 2, 10, 3, 100, 5),  # walks of 400 ns each in a 500 ns launch
     _record(3000, 4000, 3000, 4, 30, 1, 300, 0),
-    _record(5000, 5600, 1100, 2, 10, 20, 30, 40, 50, 150),  # phases add to the total
+    # Phases add to the total; then the warps' cycles in the 64 KB lookup, the lookups, their hits.
+    _record(5000, 5600, 1100, 2, 10, 20, 30, 40, 50, 150, 960, 12, 5),
     _record(7000, 7100, 100, 1),
 ])
 KINDS = ["decode", "decode", "match", "emit"]
@@ -64,7 +67,8 @@ def test_reduction_of_hand_made_records():
     assert d.counters == {"elements": 40, "general": 4, "copied": 400, "from_row": 5}
     assert d.share("general", "elements") == pytest.approx(0.1)
     assert d.share("from_row", "copied") == pytest.approx(5 / 400)
-    assert m.counters == {"stage": 10, "sort": 20, "lags": 30, "select": 40, "fold": 50, "total": 150}
+    assert m.counters == {"stage": 10, "sort": 20, "lags": 30, "select": 40, "fold": 50, "total": 150,
+                          "lookup": 960, "lookups": 12, "hits": 5}
     assert sum(m.counters[p] for p in profiling.MATCH_PHASES) == m.counters["total"]
     assert m.share("sort", "total") == pytest.approx(20 / 150) and m.walks == 2
     assert e.counters == {} and e.walk_balance == pytest.approx(1.0)
@@ -99,6 +103,7 @@ def test_launch_args_of_one_record():
         "walks": 2, "walk_balance_%": 80.0, "elements": 10, "general": 3, "copied": 100, "from_row": 5}
     args = profiling.launch_args("match", RECORDS[2])
     assert args["ctas"] == 2 and args["sort_%"] == pytest.approx(13.333, abs=1e-3) and args["total"] == 150
+    assert (args["lookup"], args["lookups"], args["hits"]) == (960, 12, 5) and "lookup_%" not in args
 
 
 def test_clock_calibration_arithmetic():
@@ -256,10 +261,12 @@ def test_trace_export_adds_a_track(fresh, monkeypatch, tmp_path):
 # -- the readers --------------------------------------------------------
 
 DECOMPRESS, COMPRESS = "bs32k_sorted.device_decompress", "bs32k_sorted.device_compress"
-SWEEP = "bs8k_sweep.device_compress"
+SWEEP, LADDER = "bs8k_sweep.device_compress", "bs64k_ladder.device_compress"
 
 
 def _cell_of(metric: str) -> str:
+    if metric in LOOKUP_METRICS:
+        return LADDER
     return DECOMPRESS if metric.startswith("decode") else SWEEP if metric.startswith("sweep") else COMPRESS
 
 
@@ -288,6 +295,8 @@ def test_readers_on_a_planted_summary(monkeypatch):
     assert _read("emit_walk_balance", COMPRESS, monkeypatch, s) == pytest.approx(100.0)
     # 8 s of match over 4000 calls is 2 ms a call; 20 of its 150 CTA-cycles sort.
     assert _read("match_sort_ms", COMPRESS, monkeypatch, s, ops=MATCH_OPS) == pytest.approx(2.0 * 20 / 150)
+    # 960 of the 32 warps' 32 x 150 cycles in the lookup.
+    assert _read("match_lookup_ms", LADDER, monkeypatch, s, ops=MATCH_OPS) == pytest.approx(2.0 * 960 / (32 * 150))
     # 6 s of sweep over 4000 calls is 1.5 ms a call; 130 of its 200 CTA-cycles walk.
     sw = profiling.reduce_records(np.concatenate([RECORDS, SWEEP_RECORDS]), KINDS + ["sweep", "sweep"])
     assert _read("sweep_walk_ms", SWEEP, monkeypatch, sw, ops=SWEEP_OPS) == pytest.approx(1.5 * 130 / 200)
@@ -295,15 +304,16 @@ def test_readers_on_a_planted_summary(monkeypatch):
     assert _read("emit_walk_balance", SWEEP, monkeypatch, sw) == pytest.approx(100.0)
 
 
-@pytest.mark.parametrize("metric", NEW_METRICS + SWEEP_METRICS)
+@pytest.mark.parametrize("metric", NEW_METRICS + SWEEP_METRICS + LOOKUP_METRICS)
 def test_readers_read_none_where_nothing_was_recorded(metric, monkeypatch):
     cell = _cell_of(metric)
     empty = profiling.reduce_records(np.zeros((4, W), np.int64), ["decode", "match", "sweep", "emit"])
     for summary in (None, {}, empty):
         assert _read(metric, cell, monkeypatch, summary, ops=MATCH_OPS) is None
     # A summary of the other direction's kernels reads nothing either.
-    other = profiling.reduce_records(RECORDS[[0, 1]] if cell == COMPRESS else RECORDS[[2, 3]],
-                                     ["decode"] * 2 if cell == COMPRESS else ["match", "emit"])
+    compress = cell in (COMPRESS, LADDER)
+    other = profiling.reduce_records(RECORDS[[0, 1]] if compress else RECORDS[[2, 3]],
+                                     ["decode"] * 2 if compress else ["match", "emit"])
     assert _read(metric, cell, monkeypatch, other, ops=MATCH_OPS) is None
     if cell == SWEEP:  # a program whose traced encode ran no sweep kernel (the sorted matcher's)
         assert _read(metric, cell, monkeypatch, profiling.reduce_records(RECORDS, KINDS), ops=MATCH_OPS) is None
@@ -316,6 +326,27 @@ def test_sweep_walk_ms_needs_the_trace(monkeypatch):
     assert _read("sweep_walk_ms", SWEEP, monkeypatch, sw, calls=0, ops=SWEEP_OPS) is None
 
 
+def test_match_lookup_ms_reads_none_without_a_lookup(monkeypatch):
+    # A decompress run, an untraced run, a program whose match kernel has no
+    # lookup counter (an older kernel), and a launch that looked nothing up
+    # (no rung split: blocks of 32 KB or less) read nothing.
+    s = profiling.reduce_records(RECORDS, KINDS)
+    assert _read("match_lookup_ms", LADDER, monkeypatch, s, ops=MATCH_OPS) is not None
+    decompress = cells.load_cell("bs64k_ladder.device_decompress")
+    monkeypatch.setattr(profiling, "kernel_summary", lambda: s)
+    record = cells.load_driver(decompress).Record(entry="decompress", calls=4000, window_s=10.0, enqueue_s=[],
+                                                  function_bytes=0)
+    record.trace = trace.Summary(window_s=10.0, busy_s=9.9, device_s=10.0, device_ops=MATCH_OPS, idle_gaps=[])
+    assert cells.load_reader(decompress, "match_lookup_ms")(record) is None
+    assert _read("match_lookup_ms", LADDER, monkeypatch, s) is None  # untraced
+    older = dict(s, match=dataclasses.replace(s["match"], counters={
+        k: v for k, v in s["match"].counters.items() if k not in ("lookup", "lookups", "hits")}))
+    assert _read("match_lookup_ms", LADDER, monkeypatch, older, ops=MATCH_OPS) is None
+    unsplit = dict(s, match=dataclasses.replace(s["match"], counters=dict(s["match"].counters, lookup=0)))
+    assert _read("match_lookup_ms", LADDER, monkeypatch, unsplit, ops=MATCH_OPS) is None
+    assert _read("match_lookup_ms", LADDER, monkeypatch, s, ops=MATCH_OPS[1:]) is None  # no match kernel traced
+
+
 def test_match_sort_ms_needs_the_trace(monkeypatch):
     s = profiling.reduce_records(RECORDS, KINDS)
     assert _read("match_sort_ms", COMPRESS, monkeypatch, s) is None  # no trace
@@ -326,7 +357,7 @@ def test_match_sort_ms_needs_the_trace(monkeypatch):
 def test_readers_of_a_program_without_kernel_spans(monkeypatch):
     # A program without kernel spans has no kernel_summary: the readers read nothing.
     monkeypatch.delattr(profiling, "kernel_summary")
-    for metric in NEW_METRICS + SWEEP_METRICS:
+    for metric in NEW_METRICS + SWEEP_METRICS + LOOKUP_METRICS:
         c = cells.load_cell(_cell_of(metric))
         record = cells.load_driver(c).Record(entry=c.traffic["entry"], calls=1, window_s=1.0, enqueue_s=[],
                                              function_bytes=0)
@@ -342,7 +373,7 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 def test_manifest_entries_of_the_kernel_metrics():
     spec = cells.load_json(cells.MANIFEST)
     per_layer = spec["per_layer"]
-    kernel_metrics = NEW_METRICS + SWEEP_METRICS
+    kernel_metrics = NEW_METRICS + SWEEP_METRICS + LOOKUP_METRICS
     assert [m["name"] for m in per_layer[-len(kernel_metrics):]] == list(kernel_metrics)  # appended, in order
     e2e = {m["name"]: m for m in spec["end_to_end"]}
     cells_by_name = {w["name"] for w in spec["workloads"]}
@@ -352,7 +383,7 @@ def test_manifest_entries_of_the_kernel_metrics():
     decompress = {"bs32k_sorted.device_decompress", "bs64k_ladder.device_decompress"}
     sorted_compress = {"bs32k_sorted.device_compress", "bs64k_ladder.device_compress"}
     runs = {"decode": decompress, "match": sorted_compress, "sweep": {SWEEP}, "emit": sorted_compress | {SWEEP}}
-    units = {"match_sort_ms": "ms", "sweep_walk_ms": "ms", "sweep_entries_per_pos": "entries"}
+    units = {"match_sort_ms": "ms", "sweep_walk_ms": "ms", "sweep_entries_per_pos": "entries", "match_lookup_ms": "ms"}
     for m in per_layer[-len(kernel_metrics):]:
         assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
@@ -361,7 +392,8 @@ def test_manifest_entries_of_the_kernel_metrics():
         assert set(m["workloads"]) <= set(e2e[m["moves"]]["workloads"])  # each cell reports what it moves
         direction = "decompress" if m["name"].startswith("decode") else "compress"
         assert m["moves"] == f"{direction}_gbps"
-        assert set(m["workloads"]) == runs[m["name"].split("_")[0]]
+        # The lookup runs only where a rung sorts its 32 KB halves in turn: the 64 KB cell.
+        assert set(m["workloads"]) == ({LADDER} if m["name"] in LOOKUP_METRICS else runs[m["name"].split("_")[0]])
         for w in m["workloads"]:
             cell = cells.load_cell(w)
             assert m["name"] in [x["name"] for x in cell.per_layer]
